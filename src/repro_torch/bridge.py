@@ -1,0 +1,65 @@
+"""Carry the JAX package's weights into the port's modules.
+
+The JAX package draws its weights from ``jax.random``, which torch cannot
+reproduce, so parity checks move the same weights across. The caller hands
+in the param pytrees as numpy (for example ``jax.tree.map(np.asarray,
+params)``); this module never imports JAX. Conv kernels go from HWIO to
+OIHW; BN statistics, PReLU slopes and dense weights are copied as they are.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.baf import BaFConv, BaFConvConfig
+from repro_torch.models.cnn import CNN, CNNConfig
+
+
+def _copy(dst: torch.Tensor, src) -> None:
+    arr = np.asarray(src, np.float32)
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {arr.shape} does not fit {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(torch.tensor(arr))
+
+
+def _load_conv(conv, p: dict) -> None:
+    _copy(conv.weight, np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)))
+    if conv.bias is not None:
+        _copy(conv.bias, p["b"])
+
+
+def _load_bn(bn, p: dict) -> None:
+    for k in ("scale", "bias", "mean", "var"):
+        _copy(getattr(bn, k), p[k])
+
+
+def _load_conv_bn(layer, p: dict) -> None:
+    _load_conv(layer.conv, p["conv"])
+    _load_bn(layer.bn, p["bn"])
+
+
+def cnn_from_jax(params, cfg: CNNConfig, *, device=None) -> CNN:
+    """JAX ``init_cnn`` params (numpy leaves) -> :class:`CNN`."""
+    model = CNN(cfg, device=device)
+    if len(params["stem"]) != len(model.stem) or \
+            len(params["tail"]) != len(model.tail):
+        raise ValueError("param tree does not match the CNN config")
+    for layer, p in zip(model.stem, params["stem"]):
+        _load_conv_bn(layer, p)
+    _load_conv_bn(model.split, params["split"])
+    for layer, p in zip(model.tail, params["tail"]):
+        _load_conv_bn(layer, p)
+    _copy(model.head.weight, params["head"]["w"])
+    _copy(model.head.bias, params["head"]["b"])
+    return model
+
+
+def baf_from_jax(params, cfg: BaFConvConfig, *, device=None) -> BaFConv:
+    """JAX ``init_baf_conv`` params (numpy leaves) -> :class:`BaFConv`."""
+    model = BaFConv(cfg, device=device)
+    for name in ("up", "c2", "c3", "c4"):
+        _load_conv(getattr(model, name), params[name])
+    for name in ("up_act", "c2_act", "c3_act"):
+        _copy(getattr(model, name).alpha, params[name]["alpha"])
+    return model

@@ -1,0 +1,159 @@
+"""Build the CUDA sources under ``repro_torch/csrc`` and bind them with ctypes.
+
+Each kernel is one ``.cu`` file with a plain C entry point. At first use it
+is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/repro_torch/`` at the root of the checkout, named by a hash of the
+source and flags so an edited source is never served a stale library. The
+library is loaded with ``ctypes``; pointers and the stream travel as
+``c_void_p`` and every entry point returns its ``cudaError_t``.
+
+Flags: ``-O3 -fmad=false`` and no ``--use_fast_math``, so divides stay IEEE
+round-to-nearest and ``a + b * c`` is not contracted into an FMA; the
+kernels then round exactly as their plain torch versions do.
+
+Nothing here runs at import: this module imports on machines with no card
+and no ``nvcc``. :func:`build_all` starts one ``nvcc`` per source at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build or its launch returned a CUDA error."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fixed = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(fixed):
+        return fixed
+    raise KernelError("nvcc not found on PATH or under /usr/local/cuda/bin; "
+                      "the CUDA kernels cannot be built")
+
+
+class CudaKernel:
+    """One source file, one C entry point per element type, one counter.
+
+    ``launches`` counts calls that launched the kernel on the card; the
+    wrapper in ``kernels/*.py`` bumps it through :meth:`launch` and nowhere
+    else.
+    """
+
+    def __init__(self, name: str, source: str, entries: dict[str, list]):
+        self.name = name
+        self.source = CSRC / source
+        self.entries = entries          # C symbol -> argtypes
+        self.launches = 0
+        self.build_seconds: float | None = None
+        self._lib = None
+        self._proc = None
+        self._out: Path | None = None
+        self._tmp: Path | None = None
+        self._t0 = 0.0
+
+    def _target(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
+
+    def start_build(self) -> None:
+        """Start nvcc in the background (no-op when built or cached)."""
+        if self._lib is not None or self._proc is not None:
+            return
+        self._out = self._target()
+        self._t0 = time.perf_counter()
+        if self._out.exists():
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = self._out.with_suffix(f".{os.getpid()}.tmp")
+        self._tmp = tmp
+        self._proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish_build(self) -> None:
+        """Wait for nvcc, then load and bind the library."""
+        if self._lib is not None:
+            return
+        self.start_build()
+        if self._proc is not None:
+            out, _ = self._proc.communicate()
+            rc = self._proc.returncode
+            self._proc = None
+            if rc != 0:
+                raise KernelError(f"nvcc failed for {self.source.name} "
+                                  f"(exit {rc}):\n{out}")
+            os.replace(self._tmp, self._out)
+        lib = ctypes.CDLL(str(self._out))
+        for sym, argtypes in self.entries.items():
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self._lib = lib
+        self.build_seconds = time.perf_counter() - self._t0
+
+    def launch(self, entry: str, *args) -> None:
+        """Call ``entry`` (builds on first use); raise on a CUDA error."""
+        self.finish_build()
+        err = getattr(self._lib, entry)(*args)
+        if err != 0:
+            raise KernelError(f"{self.name}: {entry} returned cudaError_t "
+                              f"{err}")
+        self.launches += 1
+
+
+QUANTIZE = CudaKernel("quantize", "quantize.cu", {
+    # x, sel (nullable), codes, mins, maxs, partials,
+    # B, R, P, C, levels, row blocks, device, stream
+    "baf_quantize_f32": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+})
+HISTOGRAM = CudaKernel("histogram", "histogram.cu", {
+    # codes, counts, K, C, nsym, device, stream
+    "baf_histogram_u8": [P, P, I, I, I, I, P],
+    "baf_histogram_i32": [P, P, I, I, I, I, P],
+})
+CONSOLIDATE = CudaKernel("consolidate", "consolidate.cu", {
+    # z (in place), codes, mins, maxs, sel, B, R, P, C, levels, device, stream
+    "baf_consolidate_f32": [P, P, P, P, P, I, I, I, I, I, I, P],
+})
+KERNELS = (QUANTIZE, HISTOGRAM, CONSOLIDATE)
+
+
+def build_all() -> float:
+    """Build every kernel, one nvcc per source in parallel; wall seconds."""
+    t0 = time.perf_counter()
+    for k in KERNELS:
+        k.start_build()
+    for k in KERNELS:
+        k.finish_build()
+    return time.perf_counter() - t0
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def stream_args(t: torch.Tensor) -> tuple[int, int]:
+    """(device index, current stream handle) for a CUDA tensor."""
+    dev = t.device.index if t.device.index is not None else 0
+    return dev, torch.cuda.current_stream(t.device).cuda_stream

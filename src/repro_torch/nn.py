@@ -1,0 +1,182 @@
+"""Layers of the split CNN and the BaF predictor, channel-last (B, H, W, C).
+
+Counterpart of ``repro/nn.py`` for the layers the BaF pipeline uses: conv,
+conv-transpose, inference BN and its inverse, leaky ReLU, PReLU, dense.
+Public tensors stay NHWC as in the JAX package. Convolutions run on the
+NCHW view ``x.permute(0, 3, 1, 2)`` of the NHWC tensor, which PyTorch
+treats as ``channels_last`` memory, so no layout copy is made.
+
+Parity with XLA, which the tests hold at 1e-5:
+
+* ``conv_apply`` pads like XLA's ``"SAME"``: total ``max((ceil(n/s)-1)*s
+  + k - n, 0)``, half before and the rest after. A 3x3 stride-2 conv on an
+  even size pads (0, 1), which ``F.conv2d(padding=1)`` does not.
+* ``conv_transpose_apply`` is ``lax.conv_transpose(..., "SAME")`` with the
+  kernel not flipped: a correlation with the kernel over the input
+  zero-dilated by the stride and padded (2, 1) for k=3, s=2. It runs here as
+  ``F.conv_transpose2d`` with the flipped, transposed kernel, cropped to the
+  SAME output size.
+* leaky ReLU slope 0.1, BN eps 1e-5, ``batchnorm_inverse`` floors |scale|
+  at 1e-6.
+
+Weights are stored OIHW. Initialisers draw from an explicit
+``torch.Generator`` with the JAX package's fan-in scales; they cannot
+reproduce ``jax.random``, so parity tests bridge weights (``bridge.py``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LEAKY_ALPHA = 0.1
+BN_EPS = 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Initialisers (fan-in scaling as in repro/nn.py)
+# ---------------------------------------------------------------------------
+
+def he_normal(shape, fan_in: int, gen: torch.Generator | None) -> torch.Tensor:
+    return math.sqrt(2.0 / max(fan_in, 1)) * torch.randn(shape, generator=gen)
+
+
+def lecun_normal(shape, fan_in: int,
+                 gen: torch.Generator | None) -> torch.Tensor:
+    return math.sqrt(1.0 / max(fan_in, 1)) * torch.randn(shape, generator=gen)
+
+
+# ---------------------------------------------------------------------------
+# Functional layers on NHWC tensors
+# ---------------------------------------------------------------------------
+
+def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_apply(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+               *, stride: int = 1) -> torch.Tensor:
+    """SAME conv. x: (B, H, W, Cin); w: (Cout, Cin, k, k) -> (B, H', W', Cout)."""
+    k = w.shape[-1]
+    ph = _same_pads(x.shape[1], k, stride)
+    pw = _same_pads(x.shape[2], k, stride)
+    xc = x.permute(0, 3, 1, 2)
+    if any(ph) or any(pw):
+        xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
+    y = F.conv2d(xc, w, b, stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose_apply(x: torch.Tensor, w: torch.Tensor,
+                         b: torch.Tensor | None = None, *,
+                         stride: int = 2) -> torch.Tensor:
+    """``lax.conv_transpose(x, w, (s, s), "SAME")`` with an OIHW kernel.
+
+    XLA correlates ``w`` (not flipped) with the input dilated by ``s`` and
+    padded (2, 1) for k=3, s=2. ``F.conv_transpose2d`` with no padding
+    computes the same correlation padded (k-1, k-1) with the kernel flipped,
+    so it takes ``w`` flipped and transposed, and its output is cropped to
+    the SAME size ``n * s`` from the front.
+    """
+    k = w.shape[-1]
+    pad_len = k + stride - 2
+    pad_a = k - 1 if stride > k - 1 else -(-pad_len // 2)
+    crop = (k - 1) - pad_a                      # rows dropped from the front
+    wt = w.flip(-2, -1).transpose(0, 1)         # (Cin, Cout, k, k)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, b, stride=stride)
+    h, wd = x.shape[1] * stride, x.shape[2] * stride
+    y = y[:, :, crop:crop + h, crop:crop + wd]
+    return y.permute(0, 2, 3, 1)
+
+
+def dense_apply(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ w (+ b); w: (in, out) as in the JAX package."""
+    y = x @ w
+    return y + b if b is not None else y
+
+
+def batchnorm_apply(p: dict, x: torch.Tensor, *, eps: float = BN_EPS):
+    """Inference BN over the trailing channel dim, XLA's operation order."""
+    inv = torch.rsqrt(p["var"] + eps)
+    return (x - p["mean"]) * inv * p["scale"] + p["bias"]
+
+
+def batchnorm_inverse(p: dict, z: torch.Tensor, *, eps: float = BN_EPS):
+    """Pre-BN value from the BN output; |scale| < 1e-6 is floored to 1e-6."""
+    scale = p["scale"]
+    safe = torch.where(scale.abs() < 1e-6, torch.full_like(scale, 1e-6), scale)
+    std = torch.sqrt(p["var"] + eps)
+    return (z - p["bias"]) / safe * std + p["mean"]
+
+
+def leaky_relu(x: torch.Tensor, alpha: float = LEAKY_ALPHA) -> torch.Tensor:
+    return torch.where(x >= 0, x, alpha * x)
+
+
+def prelu_apply(alpha: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, alpha * x)
+
+
+# ---------------------------------------------------------------------------
+# Modules holding the weights (built on the CPU; callers move them)
+# ---------------------------------------------------------------------------
+
+class Conv2d(nn.Module):
+    """3x3 / 1x1 conv, weight (Cout, Cin, k, k); SAME padding."""
+
+    def __init__(self, cin: int, cout: int, k: int, *, bias: bool = True,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            he_normal((cout, cin, k, k), cin * k * k, gen),
+            requires_grad=False)
+        self.bias = (nn.Parameter(torch.zeros(cout), requires_grad=False)
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+        return conv_apply(x, self.weight, self.bias, stride=stride)
+
+    def transpose(self, x: torch.Tensor, stride: int = 2) -> torch.Tensor:
+        return conv_transpose_apply(x, self.weight, self.bias, stride=stride)
+
+
+class BatchNorm(nn.Module):
+    """Inference BN with stored statistics (identity at init)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        for name, fill in (("scale", 1.0), ("bias", 0.0), ("mean", 0.0),
+                           ("var", 1.0)):
+            self.register_buffer(name, torch.full((ch,), fill))
+
+    def params(self) -> dict:
+        return {"scale": self.scale, "bias": self.bias, "mean": self.mean,
+                "var": self.var}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return batchnorm_apply(self.params(), x)
+
+
+class PReLU(nn.Module):
+    def __init__(self, ch: int, init: float = 0.25):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((ch,), init), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return prelu_apply(self.alpha, x)
+
+
+class Dense(nn.Module):
+    def __init__(self, cin: int, cout: int, *,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(lecun_normal((cin, cout), cin, gen),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_apply(x, self.weight, self.bias)

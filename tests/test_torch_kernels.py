@@ -1,0 +1,174 @@
+"""The port's quantize, histogram and consolidate against the JAX package.
+
+On the CPU each kernel wrapper runs its plain torch version; these tests
+hold that version to the JAX reference functions and to the Pallas kernels
+in interpret mode, on the same numpy inputs. Codes, side info and counts
+must be bit-identical; consolidation is held at the JAX kernel test's
+atol of 1e-5.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quant as jq
+from repro.kernels import ref
+from repro.kernels.consolidate import consolidate_pallas
+from repro.kernels.histogram import channel_histogram as jax_channel_histogram
+from repro.kernels.histogram import histogram_pallas
+from repro.kernels.quantize import quantize_pallas
+from repro_torch.core import quant as tq
+from repro_torch.kernels.consolidate import consolidate_fused
+from repro_torch.kernels.histogram import channel_histogram, histogram
+from repro_torch.kernels.quantize import quantize_fused
+
+# (scale, offset): ordinary, shifted, tiny, fp16-subnormal, beyond fp16
+CASES = [(1.0, 0.0), (3.0, 0.5), (1e-6, 0.0), (1e-7, 0.5), (1e5, -1.0),
+         (65504.0, 0.5)]
+
+
+def _x(seed, shape, scale, offset):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=shape) * scale + offset).astype(np.float32)
+    x[0, ..., 0] = offset                       # a constant channel
+    return x
+
+
+def _bits_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype
+    if a.dtype == np.float16:
+        a, b = a.view(np.uint16), b.view(np.uint16)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8])
+@pytest.mark.parametrize("scale,offset", CASES)
+@pytest.mark.parametrize("per_example", [True, False])
+def test_quant_functions_bit_identical(bits, scale, offset, per_example):
+    x = _x(0, (2, 6, 5, 8), scale, offset)
+    jqp = jq.compute_quant_params(jnp.asarray(x), bits,
+                                  per_example=per_example)
+    tqp = tq.compute_quant_params(torch.from_numpy(x), bits,
+                                  per_example=per_example)
+    _bits_equal(tqp.mins.numpy(), jqp.mins)
+    _bits_equal(tqp.maxs.numpy(), jqp.maxs)
+    jcodes = jq.quantize(jnp.asarray(x), jqp)
+    tcodes = tq.quantize(torch.from_numpy(x), tqp)
+    _bits_equal(tcodes.numpy(), jcodes)
+    jlo, jhi = jq.bin_bounds(jcodes, jqp)
+    tlo, thi = tq.bin_bounds(tcodes, tqp)
+    _bits_equal(tlo.numpy(), jlo)
+    _bits_equal(thi.numpy(), jhi)
+    np.testing.assert_allclose(tq.dequantize(tcodes, tqp).numpy(),
+                               np.asarray(jq.dequantize(jcodes, jqp)),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("scale,offset", CASES)
+@pytest.mark.parametrize("shape", [(1, 64, 8), (3, 100, 16)])
+def test_quantize_plain_matches_pallas(bits, scale, offset, shape):
+    x = _x(1, shape, scale, offset)
+    jc, jm, jM = quantize_pallas(jnp.asarray(x), bits, block_c=shape[-1],
+                                 interpret=True)
+    tc, tm, tM = quantize_fused(torch.from_numpy(x), bits)
+    for t, j in ((tc, jc), (tm, jm), (tM, jM)):
+        _bits_equal(t.numpy(), j)
+    rc, rm, rM = ref.quantize_fused_ref(jnp.asarray(x), bits)
+    _bits_equal(tc.numpy(), rc)
+
+
+def test_quantize_gathers_selected_channels():
+    x = _x(2, (2, 48, 32), 2.0, 0.0)
+    sel = np.random.default_rng(3).permutation(32)[:8]
+    jc, jm, jM = quantize_pallas(jnp.asarray(x[..., sel]), 8, block_c=8,
+                                 interpret=True)
+    tc, tm, tM = quantize_fused(torch.from_numpy(x), 8,
+                                torch.from_numpy(sel.astype(np.int32)))
+    for t, j in ((tc, jc), (tm, jm), (tM, jM)):
+        _bits_equal(t.numpy(), j)
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8, 12])
+def test_histogram_plain_matches_pallas_and_bincount(bits):
+    nsym = 1 << bits
+    rng = np.random.default_rng(bits)
+    codes = rng.integers(-1, nsym + 1, size=(100, 5)).astype(np.int32)
+    codes[::9, :] = nsym                                # padding sentinel
+    got = histogram(torch.from_numpy(codes), nsym).numpy()
+    want = np.asarray(histogram_pallas(jnp.asarray(codes), nsym,
+                                       interpret=True)).T
+    np.testing.assert_array_equal(got, want)
+    for c in range(codes.shape[1]):
+        col = codes[:, c]
+        col = col[(col >= 0) & (col < nsym)]
+        np.testing.assert_array_equal(got[c], np.bincount(col, minlength=nsym))
+
+
+def test_channel_histogram_matches_jax():
+    codes = np.random.default_rng(5).integers(0, 16, size=(2, 3, 4, 6))
+    got = channel_histogram(codes.astype(np.uint8), 4)
+    want = jax_channel_histogram(codes.astype(np.uint8), 4, interpret=True)
+    assert got.dtype == want.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    assert channel_histogram(np.empty((0, 4), np.uint8), 8).shape == (4, 256)
+
+
+@pytest.mark.parametrize("bits", [3, 8])
+@pytest.mark.parametrize("shape", [(1, 64, 8), (2, 512, 32), (2, 100, 16)])
+def test_consolidate_plain_matches_pallas(bits, shape):
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=shape).astype(np.float32)
+    codes, mins, maxs = quantize_fused(torch.from_numpy(x), bits)
+    est = x + rng.normal(size=shape).astype(np.float32) * 0.3
+    r = shape[1]
+    want = consolidate_pallas(jnp.asarray(est), jnp.asarray(codes.numpy()),
+                              jnp.asarray(mins.numpy()),
+                              jnp.asarray(maxs.numpy()), bits,
+                              block_r=512 if r % 512 == 0 else r,
+                              interpret=True)
+    got = consolidate_fused(torch.from_numpy(est.copy()), codes, mins, maxs,
+                            bits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    rwant = ref.consolidate_ref(jnp.asarray(est), jnp.asarray(codes.numpy()),
+                                jnp.asarray(mins.numpy()),
+                                jnp.asarray(maxs.numpy()), bits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(rwant), atol=1e-5,
+                               rtol=0)
+
+
+def test_consolidate_writes_only_selected_channels_in_place():
+    rng = np.random.default_rng(8)
+    z = rng.normal(size=(2, 40, 24)).astype(np.float32)
+    sel = rng.permutation(24)[:8]
+    codes, mins, maxs = quantize_fused(torch.from_numpy(z), 6,
+                                       torch.from_numpy(sel.astype(np.int32)))
+    est = z + rng.normal(size=z.shape).astype(np.float32)
+    zt = torch.from_numpy(est.copy())
+    out = consolidate_fused(zt, codes, mins, maxs, 6,
+                            torch.from_numpy(sel.astype(np.int32)))
+    assert out is zt
+    want = est.copy()
+    want[..., sel] = np.asarray(ref.consolidate_ref(
+        jnp.asarray(est[..., sel]), jnp.asarray(codes.numpy()),
+        jnp.asarray(mins.numpy()), jnp.asarray(maxs.numpy()), 6))
+    np.testing.assert_allclose(zt.numpy(), want, atol=1e-5, rtol=0)
+    rest = np.setdiff1d(np.arange(24), sel)
+    np.testing.assert_array_equal(zt.numpy()[..., rest], est[..., rest])
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    meta = torch.empty((1, 4, 4), device="meta")
+    with pytest.raises(ValueError, match="no quantize kernel"):
+        quantize_fused(meta, 8)
+    with pytest.raises(ValueError, match="no histogram kernel"):
+        histogram(torch.empty((4, 4), dtype=torch.uint8, device="meta"), 256)
+    with pytest.raises(ValueError, match="no consolidate kernel"):
+        consolidate_fused(meta, torch.empty((1, 4, 4), dtype=torch.uint8,
+                                            device="meta"),
+                          torch.empty((1, 4), dtype=torch.float16,
+                                      device="meta"),
+                          torch.empty((1, 4), dtype=torch.float16,
+                                      device="meta"), 8)
