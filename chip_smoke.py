@@ -8,24 +8,42 @@ the ``src/`` tree of this checkout; it imports nothing of JAX or of the JAX
 package ``repro``. Phases, each printing lines before the last:
 
   1. device: card name and power limit, torch and CUDA versions, TF32 flags
-     (both set to False, so float32 convolutions are full float32);
-  2. build: the three kernels of ``src/repro_torch/csrc``, one nvcc each,
+     (both set to False, so float32 convolutions and matmuls are full
+     float32);
+  2. build: the six kernels of ``src/repro_torch/csrc``, one nvcc each,
      all started together;
-  3. kernels against their plain torch versions on the card, at the
-     slice's shapes (B=8, R=64*64, P=256, C=64, bits=8) plus edge cases;
-  4. the main path at the paper's full width (YOLO front at 512x512, split
-     tensor 64x64x256, C=64, 8 bits, static rANS, fused restore): eight
-     one-image requests through edge -> plan.encode -> plan.decode_batch ->
-     plan.restore -> cloud, with the kernels' launch counts read over this
-     phase alone; the consolidate kernel held bit for bit against its plain
-     version on the path's own estimate; the restore checked against the
-     plan compiled with fused=False (and bit for bit with
-     cudnn.deterministic) and against the same path run on the CPU for the
-     first request;
-  5. times: each kernel with CUDA events at the main path's shapes (and the
-     slice's B=8), beside its memory bound, its plain version and, where
-     one PyTorch call computes the same function, that call; per-stage
-     request times.
+  3. kernels against their plain torch versions on the card: the BaF
+     kernels at the slice's shapes (B=8, R=64*64, P=256, C=64, bits=8) plus
+     edge cases (NaN, 12 bits); cdf at 8 and 12 bits; flash attention (f32
+     and bf16, causal or not, window, Sq < Sk, GQA 7 and 1, hd 64 and 128,
+     ragged S, the qwen2-7b prefill's shape); the linear scan (rwkv with
+     bonus, ssm, per-channel and scalar decay, with and without an initial
+     state, the rwkv6-3b prefill's and ingest's shapes);
+  4. the BaF main path at the paper's full width (YOLO front at 512x512,
+     split tensor 64x64x256, C=64, 8 bits, static rANS, fused restore):
+     eight one-image requests through edge -> plan.encode ->
+     plan.decode_batch -> plan.restore -> cloud, with the kernels' launch
+     counts read over this phase alone; the consolidate kernel held bit for
+     bit against its plain version on the path's own estimate; the restore
+     checked against the plan compiled with fused=False (and bit for bit
+     with cudnn.deterministic) and against the same path run on the CPU for
+     the first request; then ``channel_histogram_cdf`` on each request's
+     decoded codes (the cdf kernel's path), exact against numpy;
+  5. qwen2-7b at its full published config (28 layers, bf16, random
+     weights from a seed): B=2, a 512-token prefill (flash kernel, 28
+     launches), the KV cache filled token by token, 16 greedy decode steps;
+     prefill against the cache fill's last logits and against the same
+     model with plain attention on the card;
+  6. rwkv6-3b at its full published config (32 layers): B=2, a 512-token
+     prefill (32 scan launches), a 4096-token long ingest in blocks of 1024
+     (128 launches) held against one 4096-token prefill, 16 decode steps
+     from the ingest state;
+  7. both LMs at smoke scale in float32 from the same seeded weights: the
+     kernels on the card against the plain versions on the CPU;
+  8. times: each kernel's device time at its path's shapes (torch.profiler)
+     beside its bound, its plain version and, where one PyTorch call
+     computes the same function, that call; BaF stage times; LM prefill,
+     decode and ingest times, peak memory and the top kernels of a prefill.
 
 Then one JSON line with every kernel's numbers, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any failed
@@ -44,6 +62,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, same sheet
+F32_FLOPS = 67e12                # float32 outside the tensor cores
 B, R, P, C, BITS = 8, 64 * 64, 256, 64, 8
 HIDDEN = 64                      # width of the BaF predictor
 CONSOLIDATE_ATOL = 1e-5          # the JAX kernel test's tolerance
@@ -54,6 +74,24 @@ CONSOLIDATE_ATOL = 1e-5          # the JAX kernel test's tolerance
 # absolute.
 RESTORE_TOL = 1e-4
 CPU_TOL = 1e-3
+# Kernel against plain version: flash 2e-5 (f32) and 3e-2 (bf16), the JAX
+# kernel tests' tolerances; the linear scan 1e-4 (float32 sums in another
+# order over 16-step chunks); cdf exact. Relative and absolute.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SCAN_TOL = 1e-4
+# Full-width LMs. Each check runs twice. In float32 (the same weights
+# upcast) two orders of the same arithmetic must agree to LM_F32_RTOL of
+# the largest |logit|: these are the checks that test the algorithms. In
+# bf16 no fixed bound is principled at 28-32 layers of random weights, so
+# the bound is measured in the same run: two bf16 evaluations of one
+# function (kernel and plain attention, prefill and cache fill, ingest and
+# prefill) may lie at most as far apart as the plain bf16 evaluation lies
+# from float32. That catches only a fault larger than bf16 rounding carried
+# through the stack; the kernels' own bf16 cases above are held at 3e-2.
+LM_F32_RTOL = 1e-3
+LM_CPU_TOL = 1e-4                # smoke LMs in float32, card against CPU
+QWEN_B, QWEN_PROMPT, GEN = 2, 512, 16
+RWKV_B, RWKV_PROMPT, RWKV_LONG, RWKV_BLOCK = 2, 512, 4096, 1024
 
 
 def nvidia_smi_line() -> str:
@@ -110,16 +148,34 @@ def device_ms(fn, iters: int = 20) -> float:
     return total_us / 1e3 / iters
 
 
+def _numeric(t):
+    """A tensor torch can subtract: uint16 codes widened through int32."""
+    import torch
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return t
+
+
 def bits_equal(a, b) -> bool:
     import torch
-    if a.dtype == torch.float16:
+    if a.dtype in (torch.float16, torch.uint16):
         a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
 def max_abs_diff(pairs) -> float:
-    """Largest |a - b| over (kernel, plain) tensor pairs, in float64."""
-    return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+    """Largest |a - b| over (kernel, plain) tensor pairs, in float64; NaN
+    where both are NaN counts as equal."""
+    import torch
+    out = 0.0
+    for a, b in pairs:
+        d = (_numeric(a).double() - _numeric(b).double()).abs()
+        both_nan = torch.isnan(a.double()) & torch.isnan(b.double()) \
+            if a.is_floating_point() else None
+        if both_nan is not None:
+            d = torch.where(both_nan, torch.zeros_like(d), d)
+        out = max(out, float(d.max()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +212,9 @@ def check_kernels(dev) -> dict:
         quantize_case(B, R, P, C, 1.0, 0.0)[1],               # slice shape
         quantize_case(B, R, P, C, 1e5, -1.0)[1],              # beyond fp16
         quantize_case(2, R, P, C, 1e-7, 0.5)[1],              # fp16 subnormal
-        quantize_case(3, 1000, P, 40, 3.0, 0.5, bits=5)[1])   # ragged R, C
+        quantize_case(3, 1000, P, 40, 3.0, 0.5, bits=5)[1],   # ragged R, C
+        quantize_case(B, R, P, C, 1.0, 0.0, bits=12)[1],      # uint16 codes
+        quantize_nan_case(dev, gen))
 
     def histogram_case(codes, nsym, label):
         got = histogram(codes, nsym)
@@ -195,7 +253,118 @@ def check_kernels(dev) -> dict:
         return err
 
     errs["consolidate"] = max(consolidate_case(B, R, P, C, BITS),
-                              consolidate_case(3, 1000, 40, 40, 3))
+                              consolidate_case(3, 1000, 40, 40, 3),
+                              consolidate_case(2, R, P, C, 12))
+    return errs
+
+
+def quantize_nan_case(dev, gen) -> float:
+    """One NaN: its (example, channel) gets NaN fp16 side info and zero
+    codes, as the plain version (torch.amin/amax, like jnp.min/max) gives;
+    every other value bit-identical."""
+    import torch
+    from repro_torch.kernels.quantize import quantize_fused, quantize_plain
+    x = torch.randn((2, R, P), generator=gen).to(dev)
+    x[1, 77, 5] = float("nan")
+    got = quantize_fused(x, BITS)
+    want = quantize_plain(x, BITS)
+    sync(dev)
+    ok = bits_equal(got[0], want[0]) and not bool(got[0][1, :, 5].any())
+    for g, w in zip(got[1:], want[1:]):
+        nan = torch.isnan(w)
+        ok = ok and torch.equal(torch.isnan(g), nan) and int(nan.sum()) == 1 \
+            and bool(nan[1, 5]) and bits_equal(g[~nan], w[~nan])
+    print(f"quantize with one NaN at (1, 77, 5): NaN side info at (1, 5) "
+          f"only, zero codes there, the rest bit-identical: "
+          f"{'yes' if ok else 'NO'}")
+    if not ok:
+        raise AssertionError("quantize kernel differs on NaN input")
+    return max_abs_diff(zip(got, want))
+
+
+def check_lm_kernels(dev) -> dict:
+    """cdf, flash attention and the linear scan against their plain
+    versions on the card."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.histogram import cdf, cdf_plain
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    errs = {"cdf": 0.0, "flash_attention": 0.0, "linear_scan": 0.0}
+    for bits, c in ((8, C), (12, C), (12, 5)):
+        counts = torch.randint(0, 1 << bits, (1 << bits, c), generator=gen,
+                               device=dev, dtype=torch.int32)
+        ok = bool(torch.equal(cdf(counts), cdf_plain(counts)))
+        print(f"cdf S={1 << bits} C={c}: {'exact' if ok else 'DIFFERS'}")
+        if not ok:
+            raise AssertionError("cdf kernel differs from plain version")
+
+    flash_cases = [
+        # B, Sq, Sk, H, KH, hd, causal, window
+        (QWEN_B, QWEN_PROMPT, QWEN_PROMPT, 28, 4, 128, True, None),  # path
+        (1, 256, 256, 4, 4, 64, True, None),      # GQA g = 1, hd 64
+        (2, 200, 200, 8, 2, 64, True, None),      # ragged S
+        (1, 128, 128, 4, 2, 128, False, None),    # not causal
+        (1, 300, 300, 14, 2, 128, True, 100),     # window, GQA 7
+        (1, 64, 256, 7, 1, 128, True, None),      # Sq < Sk
+        (2, 77, 131, 4, 2, 16, True, 33),         # ragged, window, Sq < Sk
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for b, sq, sk, h, kh, hd, causal, window in flash_cases:
+            q = torch.randn((b, sq, h, hd), generator=gen, device=dev)
+            k = torch.randn((b, sk, kh, hd), generator=gen, device=dev)
+            v = torch.randn((b, sk, kh, hd), generator=gen, device=dev)
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            sync(dev)
+            err = max_abs_diff([(got, want)])
+            tol = FLASH_TOL[name]
+            ok = bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                     rtol=tol))
+            print(f"flash {name} B={b} Sq={sq} Sk={sk} H={h} KH={kh} hd={hd} "
+                  f"causal={causal} window={window}: max abs diff {err!r} "
+                  f"(tolerance {tol})")
+            if not ok:
+                raise AssertionError("flash kernel differs from plain")
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+
+    scan_cases = [
+        # B, S, H, dk, dv, chunk, mode, per-channel, bonus, initial state
+        (RWKV_B, RWKV_PROMPT, 40, 64, 64, 16, "rwkv", True, True, False),
+        (RWKV_B, RWKV_BLOCK, 40, 64, 64, 16, "rwkv", True, True, True),
+        (2, 128, 4, 64, 64, 16, "ssm", False, False, True),
+        (2, 128, 4, 64, 64, 16, "ssm", True, False, False),
+        (1, 96, 3, 32, 48, 16, "rwkv", False, True, False),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s_, h, dk, dv, chunk, mode, per_ch, bonus, init in scan_cases:
+            def rnd(*shape, scale=0.5):
+                return torch.randn(shape, generator=gen, device=dev) * scale
+            q, k = rnd(b, s_, h, dk).to(dtype), rnd(b, s_, h, dk).to(dtype)
+            v = rnd(b, s_, h, dv, scale=1.0).to(dtype)
+            ld = -torch.exp(rnd(b, s_, h, dk if per_ch else 1) - 1.0)
+            u = rnd(h, dk) if bonus else None
+            s0 = rnd(b, h, dk, dv) if init else None
+            got = linear_scan(q, k, v, ld, bonus=u, initial_state=s0,
+                              chunk=chunk, mode=mode)
+            want = linear_scan_plain(q, k, v, ld, bonus=u, initial_state=s0,
+                                     chunk=chunk, mode=mode)
+            sync(dev)
+            err = max_abs_diff(zip(got, want))
+            ok = all(torch.allclose(g, w, atol=SCAN_TOL, rtol=SCAN_TOL)
+                     for g, w in zip(got, want))
+            print(f"linear scan {str(dtype).split('.')[1]} B={b} S={s_} "
+                  f"H={h} dk={dk} dv={dv} chunk={chunk} {mode} "
+                  f"per-channel={per_ch} bonus={bonus} initial={init}: max "
+                  f"abs diff {err!r} (tolerance {SCAN_TOL})")
+            if not ok:
+                raise AssertionError("linear-scan kernel differs from plain")
+            errs["linear_scan"] = max(errs["linear_scan"], err)
     return errs
 
 
@@ -374,7 +543,374 @@ def main_path(dev, cfg) -> dict:
                                atol=CPU_TOL)):
         raise AssertionError("card and CPU paths disagree")
     return dict(launches=launches, times=times, wire=wire, z=z_tilde,
-                consolidate_err=cons_err)
+                consolidate_err=cons_err, decoded=decoded)
+
+
+def cdf_path(dev, decoded) -> dict:
+    """``channel_histogram_cdf`` on each request's decoded codes, on the
+    card: the histogram and cdf kernels, exact against numpy."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.histogram import channel_histogram_cdf
+
+    _build.reset_launches()
+    n = decoded.codes.shape[0]
+    outs = [channel_histogram_cdf(decoded.codes[i], BITS, device=dev)
+            for i in range(n)]
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    print(f"cdf path launches ({n} requests): {launches}")
+    if launches["cdf"] != n or launches["histogram"] != n:
+        raise AssertionError(f"cdf path did not run its kernels: {launches}")
+    for i, (counts, cum) in enumerate(outs):
+        flat = decoded.codes[i].reshape(-1, C).astype(np.int64)
+        want = np.stack([np.bincount(flat[:, c], minlength=1 << BITS)
+                         for c in range(C)])
+        if not (np.array_equal(counts, want)
+                and np.array_equal(cum, np.cumsum(want, 1) - want)):
+            raise AssertionError(f"request {i}: counts or CDF differ")
+    print("cdf path: counts and exclusive CDF equal numpy's for every "
+          "request: yes")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 5-7: the LM serving path at full width
+# ---------------------------------------------------------------------------
+
+def _argmax_tokens(logits):
+    import torch
+    return torch.argmax(logits.float(), dim=-1)
+
+
+def _dist(a, b) -> float:
+    return max_abs_diff([(a.float(), b.float())])
+
+
+def _logit_check(label, got, want, tol, why) -> float:
+    """max |got - want| <= tol, with the argmax agreement; raises."""
+    err = _dist(got, want)
+    agree = float((_argmax_tokens(got) == _argmax_tokens(want)).float()
+                  .mean())
+    print(f"{label}: max abs diff {err!r}, max |logit| "
+          f"{float(want.float().abs().max())!r}, tolerance {tol!r} ({why}); "
+          f"argmax agreement {agree!r}")
+    if not (err <= tol and torch_isfinite(got)):
+        raise AssertionError(f"{label}: logits disagree")
+    return err
+
+
+def _f32_checks(label, pairs32, noise, pairs16):
+    """pairs32: (name, a, b) in float32, held to LM_F32_RTOL of max |b|;
+    pairs16: (name, a, b) in bf16, held to ``noise``, the plain bf16
+    evaluation's distance from float32."""
+    errs = {}
+    for name, a, b in pairs32:
+        tol = LM_F32_RTOL * float(b.float().abs().max())
+        errs[name + " f32"] = _logit_check(
+            f"{label} float32, {name}", a, b, tol,
+            f"{LM_F32_RTOL} of max |logit|")
+    for name, a, b in pairs16:
+        errs[name + " bf16"] = _logit_check(
+            f"{label} bf16, {name}", a, b, noise,
+            "the plain bf16 path's distance from float32")
+    return errs
+
+
+def _f32_copy(model):
+    """The same LM with every weight upcast to float32, computing in it."""
+    import copy
+    import torch
+    m = copy.deepcopy(model).float()
+    m.cfg = model.cfg.with_(dtype=torch.float32)
+    return m
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t.float()).all())
+
+
+def _timed(dev, fn):
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def qwen_path(dev) -> dict:
+    """qwen2-7b, full config: prefill (flash kernel), token-by-token cache
+    fill, greedy decode, checks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import param_count_dense
+    from repro_torch.kernels import _build
+    from repro_torch.models.lm import init_decode_cache, init_lm, lm_forward
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    cfg = get_config("qwen2_7b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    (model, t_init) = _timed(dev, lambda: init_lm(cfg, seed=0, device=dev))
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"qwen2-7b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.hd}, "
+          f"{nparams} parameters held ({param_count_dense(cfg)} by the "
+          f"config's count, which leaves out norms and biases), weights in "
+          f"{cfg.dtype}; initialised on the card in {t_init!r} s")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    tokens = torch.randint(0, cfg.vocab, (QWEN_B, QWEN_PROMPT), generator=gen,
+                           device=dev)
+    prefill = make_prefill_step(cfg)
+    step = make_decode_step(cfg)
+    batch = {"tokens": tokens}
+    prefill(model, batch)                                   # warm-up
+    # the counted run: prefill, cache fill, decode
+    _build.reset_launches()
+    logits, t_prefill = _timed(dev, lambda: prefill(model, batch))
+    after_prefill = {k.name: k.launches for k in _build.KERNELS}
+    # room for the prompt, the decode and one profiled step
+    cache = init_decode_cache(cfg, QWEN_B, QWEN_PROMPT + GEN + 1, device=dev)
+
+    def fill():
+        nonlocal cache
+        out = None
+        for t in range(QWEN_PROMPT):
+            out, cache = step(model, cache, tokens[:, t])
+        return out
+    last, t_fill = _timed(dev, fill)
+    tok = _argmax_tokens(logits[:, -1])
+    generated = [tok]
+
+    def decode():
+        nonlocal cache, tok
+        for _ in range(GEN):
+            lt, cache = step(model, cache, tok)
+            tok = _argmax_tokens(lt)
+            generated.append(tok)
+        return lt
+    last_decode, t_decode = _timed(dev, decode)
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    print(f"qwen2-7b launches: after prefill {after_prefill}; after cache "
+          f"fill and decode {launches}")
+    if launches["flash_attention"] != cfg.n_layers or \
+            after_prefill["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"qwen2-7b prefill launched flash "
+                             f"{launches['flash_attention']} times, expected "
+                             f"{cfg.n_layers}")
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    if tuple(logits.shape) != (QWEN_B, QWEN_PROMPT, cfg.vocab) or \
+            not torch_isfinite(logits) or not torch_isfinite(last_decode):
+        raise AssertionError("qwen2-7b logits have the wrong shape or are "
+                             "not finite")
+    # the same model with the plain attention in place of the kernel
+    plain = lm_forward(model, tokens=tokens, attention="blocked")[0]
+    # the same weights in float32: prefill with the kernel and with plain
+    # attention, and the cache fill
+    m32 = _f32_copy(model)
+    logits32 = prefill(m32, batch)
+    plain32 = lm_forward(m32, tokens=tokens, attention="blocked")[0]
+    cache32 = init_decode_cache(m32.cfg, QWEN_B, QWEN_PROMPT, device=dev)
+    for t in range(QWEN_PROMPT):
+        last32, cache32 = step(m32, cache32, tokens[:, t])
+    del m32, cache32
+    noise = _dist(plain, plain32)
+    checks = _f32_checks("qwen2-7b", [
+        ("prefill: flash kernel vs plain attention", logits32, plain32),
+        ("last prompt position: prefill vs cache fill (decode attention)",
+         last32, logits32[:, -1])], noise, [
+        ("prefill: flash kernel vs plain attention", logits, plain),
+        ("last prompt position: prefill vs cache fill (decode attention)",
+         last, logits[:, -1])])
+    print(f"qwen2-7b bf16 against float32 of the same weights: prefill with "
+          f"the kernel {_dist(logits, logits32)!r}, with plain attention "
+          f"{noise!r}, cache fill {_dist(last, last32)!r} (max abs)")
+    del logits32, plain32
+    rows = [[int(t[i]) for t in generated] for i in range(QWEN_B)]
+    print(f"qwen2-7b greedy tokens: {rows}")
+    times = dict(prefill_ms=t_prefill * 1e3,
+                 cache_fill_ms_per_token=t_fill * 1e3 / QWEN_PROMPT,
+                 decode_ms_per_token=t_decode * 1e3 / GEN,
+                 peak_gb=peak / 1e9)
+    print(f"qwen2-7b times (host clock, synchronised): prefill of "
+          f"{QWEN_B}x{QWEN_PROMPT} tokens {times['prefill_ms']!r} ms; cache "
+          f"fill {times['cache_fill_ms_per_token']!r} ms per step; decode "
+          f"{times['decode_ms_per_token']!r} ms per step of {QWEN_B} tokens; "
+          f"peak memory {times['peak_gb']!r} GB")
+    profile_top(dev, "qwen2-7b prefill", lambda: prefill(model, batch))
+    profile_top(dev, "qwen2-7b decode step", lambda: step(model, cache, tok))
+    del model, cache, logits, plain
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, checks=checks)
+
+
+def rwkv_path(dev) -> dict:
+    """rwkv6-3b, full config: prefill, long ingest, decode from the ingest
+    state; ingest against one long prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import param_count_dense
+    from repro_torch.kernels import _build
+    from repro_torch.models.lm import DecodeCache, init_lm
+    from repro_torch.serve.engine import (make_decode_step, make_long_ingest,
+                                          make_prefill_step)
+
+    cfg = get_config("rwkv6_3b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    (model, t_init) = _timed(dev, lambda: init_lm(cfg, seed=1, device=dev))
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"rwkv6-3b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.d_model // cfg.ssm.head_dim} heads of {cfg.ssm.head_dim}, "
+          f"chunk {cfg.ssm.chunk}, {nparams} parameters held "
+          f"({param_count_dense(cfg)} by the config's count); initialised on "
+          f"the card in {t_init!r} s")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    prompt = torch.randint(0, cfg.vocab, (RWKV_B, RWKV_PROMPT), generator=gen,
+                           device=dev)
+    long_toks = torch.randint(0, cfg.vocab, (RWKV_B, RWKV_LONG),
+                              generator=gen, device=dev)
+    prefill = make_prefill_step(cfg)
+    ingest = make_long_ingest(cfg, block=RWKV_BLOCK)
+    step = make_decode_step(cfg)
+    prefill(model, {"tokens": prompt})                       # warm-up
+    _build.reset_launches()
+    logits, t_prefill = _timed(dev, lambda: prefill(model,
+                                                    {"tokens": prompt}))
+    n_prefill = _build.LINEAR_SCAN.launches
+    (last, state), t_ingest = _timed(dev, lambda: ingest(model, long_toks))
+    n_ingest = _build.LINEAR_SCAN.launches - n_prefill
+    cache = DecodeCache(rwkv=state.layer_states)
+    tok = _argmax_tokens(last)
+    generated = [tok]
+
+    def decode():
+        nonlocal cache, tok
+        for _ in range(GEN):
+            lt, cache = step(model, cache, tok)
+            tok = _argmax_tokens(lt)
+            generated.append(tok)
+        return lt
+    last_decode, t_decode = _timed(dev, decode)
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    print(f"rwkv6-3b linear-scan launches: prefill {n_prefill} (expected "
+          f"{cfg.n_layers}), ingest {n_ingest} (expected {cfg.n_layers} x "
+          f"{RWKV_LONG // RWKV_BLOCK}); all launches over the path {launches}")
+    if n_prefill != cfg.n_layers or \
+            n_ingest != cfg.n_layers * (RWKV_LONG // RWKV_BLOCK):
+        raise AssertionError("rwkv6-3b did not run the scan kernel per layer")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(logits.shape) != (RWKV_B, RWKV_PROMPT, cfg.vocab) or \
+            not torch_isfinite(logits) or not torch_isfinite(last_decode):
+        raise AssertionError("rwkv6-3b logits have the wrong shape or are "
+                             "not finite")
+    full, t_full = _timed(dev, lambda: prefill(model, {"tokens": long_toks}))
+    full = full[:, -1]
+    m32 = _f32_copy(model)
+    last32, _ = make_long_ingest(m32.cfg, block=RWKV_BLOCK)(m32, long_toks)
+    full32 = prefill(m32, {"tokens": long_toks})[:, -1]
+    del m32
+    noise = _dist(full, full32)
+    label = (f"last position: ingest of {RWKV_LONG} tokens in blocks of "
+             f"{RWKV_BLOCK} vs one {RWKV_LONG}-token prefill")
+    checks = _f32_checks("rwkv6-3b", [(label, last32, full32)], noise,
+                         [(label, last, full)])
+    print(f"rwkv6-3b bf16 against float32 of the same weights, last "
+          f"position: {RWKV_LONG}-token prefill {noise!r}, ingest "
+          f"{_dist(last, last32)!r} (max abs)")
+    rows = [[int(t[i]) for t in generated] for i in range(RWKV_B)]
+    print(f"rwkv6-3b greedy tokens after the ingest: {rows}")
+    times = dict(prefill_ms=t_prefill * 1e3, ingest_ms=t_ingest * 1e3,
+                 long_prefill_ms=t_full * 1e3,
+                 decode_ms_per_token=t_decode * 1e3 / GEN,
+                 peak_gb=peak / 1e9)
+    print(f"rwkv6-3b times (host clock, synchronised): prefill of "
+          f"{RWKV_B}x{RWKV_PROMPT} tokens {times['prefill_ms']!r} ms; ingest "
+          f"of {RWKV_B}x{RWKV_LONG} {times['ingest_ms']!r} ms; one "
+          f"{RWKV_LONG}-token prefill {times['long_prefill_ms']!r} ms; decode "
+          f"{times['decode_ms_per_token']!r} ms per step of {RWKV_B} tokens; "
+          f"peak memory {times['peak_gb']!r} GB (the one long prefill "
+          f"included)")
+    profile_top(dev, "rwkv6-3b prefill", lambda: prefill(model,
+                                                         {"tokens": prompt}))
+    profile_top(dev, "rwkv6-3b decode step", lambda: step(model, cache, tok))
+    del model, cache, logits, full
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, checks=checks)
+
+
+def profile_top(dev, label: str, fn, top: int = 6) -> None:
+    """Device time of one call by kernel name, and the device's busy share
+    of the call's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            rows.append((us, e.key))
+    busy = sum(us for us, _ in rows)
+    if not busy > 0:
+        raise RuntimeError("torch.profiler recorded no CUDA device time")
+    rows.sort(reverse=True)
+    print(f"{label}: device busy {busy / 1e3!r} ms of {wall * 1e3!r} ms wall "
+          f"under the profiler (busy share {busy / 1e6 / wall!r}); top "
+          f"kernels: " + "; ".join(f"{k[:60]} {us / 1e3!r} ms"
+                                   for us, k in rows[:top]))
+
+
+def lms_card_vs_cpu(dev) -> float:
+    """Smoke-scale LMs in float32 from one seed: kernels on the card against
+    the plain versions on the CPU (prefill, 3 decode steps, rwkv ingest)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import init_decode_cache, init_lm
+    from repro_torch.serve.engine import (make_decode_step, make_long_ingest,
+                                          make_prefill_step)
+
+    cpu = torch.device("cpu")
+    worst = 0.0
+    for arch in ("qwen2_7b", "rwkv6_3b"):
+        cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+        ref = init_lm(cfg, seed=5, device=cpu)
+        card = init_lm(cfg, seed=5, device=cpu).to(dev)
+        toks = torch.randint(0, cfg.vocab, (2, 128),
+                             generator=torch.Generator().manual_seed(6))
+        pairs = [(make_prefill_step(cfg)(card, {"tokens": toks.to(dev)}),
+                  make_prefill_step(cfg)(ref, {"tokens": toks}))]
+        step = make_decode_step(cfg)
+        cc = init_decode_cache(cfg, 2, 8, device=dev)
+        rc = init_decode_cache(cfg, 2, 8, device=cpu)
+        for t in range(3):
+            lc, cc = step(card, cc, toks[:, t].to(dev))
+            lr, rc = step(ref, rc, toks[:, t])
+            pairs.append((lc, lr))
+        if cfg.family == "ssm":
+            ingest = make_long_ingest(cfg, block=32)
+            (lc, sc), (lr, sr) = ingest(card, toks.to(dev)), ingest(ref, toks)
+            pairs.append((lc, lr))
+            pairs += [(a.wkv, b.wkv) for a, b in zip(sc.layer_states,
+                                                     sr.layer_states)]
+        pairs = [(a.cpu(), b) for a, b in pairs]
+        err = max_abs_diff(pairs)
+        ok = all(torch.allclose(a, b, atol=LM_CPU_TOL, rtol=LM_CPU_TOL)
+                 for a, b in pairs)
+        print(f"{arch} smoke config in float32, card (kernels) vs CPU (plain "
+              f"versions): prefill, 3 decode steps"
+              f"{', ingest and its states' if cfg.family == 'ssm' else ''}: "
+              f"max abs diff {err!r} (tolerance {LM_CPU_TOL} relative and "
+              f"absolute)")
+        if not ok:
+            raise AssertionError(f"{arch}: card and CPU disagree")
+        worst = max(worst, err)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -395,19 +931,24 @@ def time_kernels(dev, errs: dict, launches: dict) -> list:
         """(device ms from the profiler, ms per call between CUDA events)."""
         return device_ms(fn), event_ms(fn)
 
-    def row(name, src, replaces, kernel, plain, nbytes, library, note):
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+    def row(name, src, replaces, kernel, plain, nbytes, library, note,
+            flops=0.0, peak=F32_FLOPS):
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = flops / peak * 1e3
+        bound = max(by_bytes, by_ops)
         lib = None if library is None else library[0]
         print(f"time {name} ({note}): device time per call, from the "
               f"profiler: kernel {kernel[0]!r} ms, plain {plain[0]!r} ms, "
-              f"library {lib!r} ms; bound {bound!r} ms ({nbytes} bytes); per "
-              f"call between CUDA events, launch included: kernel "
+              f"library {lib!r} ms; bound {bound!r} ms ({nbytes} bytes -> "
+              f"{by_bytes!r} ms; {flops!r} flops at {peak:g}/s -> {by_ops!r} "
+              f"ms); per call between CUDA events, launch included: kernel "
               f"{kernel[1]!r} ms, plain {plain[1]!r} ms, library "
               f"{None if library is None else library[1]!r} ms")
         return dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches[name], max_abs_err=errs[name],
                     ms=kernel[0], plain_ms=plain[0], bound_ms=bound,
-                    bound_by="bytes", library_ms=lib)
+                    bound_by="bytes" if by_bytes >= by_ops else "operations",
+                    library_ms=lib)
 
     def quantize_times(b):
         x = torch.randn((b, R, P), generator=gen).to(dev)
@@ -460,7 +1001,90 @@ def time_kernels(dev, errs: dict, launches: dict) -> list:
     rows.append(row("consolidate", "src/repro_torch/csrc/consolidate.cu",
                     "src/repro/kernels/consolidate.py:37", c8[0], c8[1],
                     c8[2], None, f"main path B={B} R={R} P={P} C={C}"))
+    rows += time_lm_kernels(dev, row, gen)
     return rows
+
+
+def time_lm_kernels(dev, row, gen) -> list:
+    """cdf at the cdf path's shape, flash at the qwen2-7b prefill's, the
+    linear scan at the rwkv6-3b prefill's and ingest block's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.histogram import cdf, cdf_plain
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
+
+    def timed(fn):
+        return device_ms(fn), event_ms(fn)
+
+    out = []
+    nsym = 1 << BITS
+    counts = torch.randint(0, 64, (nsym, C), generator=gen,
+                           dtype=torch.int32).to(dev)
+    out.append(row("cdf", "src/repro_torch/csrc/cdf.cu",
+                   "src/repro/kernels/histogram.py:104",
+                   timed(lambda: cdf(counts)), timed(lambda: cdf_plain(counts)),
+                   2 * nsym * C * 4,
+                   timed(lambda: torch.cumsum(counts, dim=0)),
+                   f"cdf path S={nsym} C={C}, library torch.cumsum"))
+
+    b, s, h, kh, hd = QWEN_B, QWEN_PROMPT, 28, 4, 128
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((b, s, h, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, kh, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, kh, hd), generator=g, device=dev).to(torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = s * (s + 1) // 2                      # unmasked (q, k), causal
+    flops = 4.0 * b * h * hd * pairs
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())   # bf16 q,k,v,o
+    out.append(row(
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:81",
+        timed(lambda: flash_attention(q, k, v, causal=True)),
+        timed(lambda: flash_attention_plain(q, k, v, causal=True)), nbytes,
+        timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        f"qwen2-7b prefill B={b} S={s} H={h} KH={kh} hd={hd} bf16 causal; "
+        f"library F.scaled_dot_product_attention(enable_gqa=True) on "
+        f"(B, H, S, hd) copies", flops=flops, peak=BF16_FLOPS))
+
+    first = True
+    for s_, init in ((RWKV_PROMPT, False), (RWKV_BLOCK, True)):
+        b, h, dk, dv, L = RWKV_B, 40, 64, 64, 16
+        qs = torch.randn((b, s_, h, dk), generator=g, device=dev) * 0.5
+        ks = torch.randn((b, s_, h, dk), generator=g, device=dev) * 0.5
+        vs = torch.randn((b, s_, h, dv), generator=g, device=dev)
+        qs, ks, vs = (t.to(torch.bfloat16) for t in (qs, ks, vs))
+        ld = -torch.exp(torch.randn((b, s_, h, dk), generator=g,
+                                    device=dev) - 1.0)
+        u = torch.randn((h, dk), generator=g, device=dev) * 0.1
+        s0 = torch.randn((b, h, dk, dv), generator=g, device=dev) \
+            if init else None
+        kw = dict(bonus=u, initial_state=s0, chunk=L, mode="rwkv")
+        # bf16 q, k, v and f32 decay read once; f32 y and state written once
+        nbytes = b * s_ * h * (2 * dk * 2 + dv * 2 + dk * 4 + dv * 4) \
+            + h * dk * 4 + (2 if init else 1) * b * h * dk * dv * 4
+        nc = s_ // L
+        # the intra-chunk products over the (t, s) pairs the rwkv mask keeps
+        # (s < t; s <= t in ssm mode), the carried state in and out, and
+        # the elementwise decay and bonus terms
+        pairs = L * (L - 1) // 2 if kw["mode"] == "rwkv" else L * (L + 1) // 2
+        per_chunk = (2 * pairs * dk + 2 * pairs * dv + 2 * L * dk * dv
+                     + 2 * L * dk * dv + 3 * L * dk + 5 * L * dk)
+        flops = float(b * h * nc * per_chunk)
+        r = row("linear_scan", "src/repro_torch/csrc/linear_scan.cu",
+                "src/repro/kernels/linear_scan.py:80",
+                timed(lambda: linear_scan(qs, ks, vs, ld, **kw)),
+                timed(lambda: linear_scan_plain(qs, ks, vs, ld, **kw)),
+                nbytes, None,
+                f"rwkv6-3b {'ingest block' if init else 'prefill'} B={b} "
+                f"S={s_} H={h} dk=dv={dk} chunk {L}, rwkv with bonus"
+                f"{', initial state' if init else ''}", flops=flops)
+        if first:
+            out.append(r)
+            first = False
+    return out
 
 
 def main() -> int:
@@ -490,6 +1114,7 @@ def main() -> int:
                       _build.KERNELS))
 
     errs = check_kernels(dev)
+    errs.update(check_lm_kernels(dev))
     cfg = full_config()
     print(f"main path: {cfg}, split {cfg.split_hw}x{cfg.split_hw}x"
           f"{cfg.split_p}, Q={cfg.split_q}, C={C}, bits={BITS}, rans, fused")
@@ -497,7 +1122,14 @@ def main() -> int:
     errs["consolidate"] = max(errs["consolidate"], res["consolidate_err"])
     for k, v in res["times"].items():
         print(f"stage {k}: {v * 1e3!r} ms per request")
-    rows = time_kernels(dev, errs, res["launches"])
+    launches = dict(res["launches"])
+    launches["cdf"] = cdf_path(dev, res["decoded"])["cdf"]
+    qwen = qwen_path(dev)
+    rwkv = rwkv_path(dev)
+    launches["flash_attention"] = qwen["launches"]["flash_attention"]
+    launches["linear_scan"] = rwkv["launches"]["linear_scan"]
+    lms_card_vs_cpu(dev)
+    rows = time_kernels(dev, errs, launches)
     print(f"total {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())

@@ -5,14 +5,19 @@ reproduce, so parity checks move the same weights across. The caller hands
 in the param pytrees as numpy (for example ``jax.tree.map(np.asarray,
 params)``); this module never imports JAX. Conv kernels go from HWIO to
 OIHW; BN statistics, PReLU slopes and dense weights are copied as they are.
+LM params keep the JAX (in, out) weight layout; their layers, stacked on a
+leading axis by the JAX package, go one slice to each layer module, and
+each leaf is cast to the dtype its module stores it in.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.baf import BaFConv, BaFConvConfig
 from repro_torch.models.cnn import CNN, CNNConfig
+from repro_torch.models.lm import LM
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -20,7 +25,7 @@ def _copy(dst: torch.Tensor, src) -> None:
     if tuple(arr.shape) != tuple(dst.shape):
         raise ValueError(f"shape {arr.shape} does not fit {tuple(dst.shape)}")
     with torch.no_grad():
-        dst.copy_(torch.tensor(arr))
+        dst.copy_(torch.tensor(arr).to(dst.dtype))
 
 
 def _load_conv(conv, p: dict) -> None:
@@ -63,3 +68,26 @@ def baf_from_jax(params, cfg: BaFConvConfig, *, device=None) -> BaFConv:
     for name in ("up_act", "c2_act", "c3_act"):
         _copy(getattr(model, name).alpha, params[name]["alpha"])
     return model
+
+
+def _load_tree(module: torch.nn.Module, tree: dict, index=None) -> None:
+    """Copy a param dict into the same-named attributes of ``module``,
+    taking slice ``index`` of every leaf when the layers are stacked."""
+    for key, val in tree.items():
+        dst = getattr(module, key)
+        if isinstance(val, dict):
+            _load_tree(dst, val, index)
+        else:
+            _copy(dst, val if index is None else np.asarray(val)[index])
+
+
+def lm_from_jax(params, cfg: ArchConfig, *, device=None) -> LM:
+    """JAX ``init_lm`` params (numpy leaves, layers stacked on axis 0) ->
+    :class:`LM` for the dense and ssm families."""
+    model = LM(cfg, device=device)
+    layers = params["layers"]
+    for i, layer in enumerate(model.layers):
+        _load_tree(layer, layers, i)
+    _load_tree(model, {k: v for k, v in params.items() if k != "layers"})
+    return model
+

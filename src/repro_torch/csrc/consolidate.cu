@@ -11,8 +11,10 @@
 // IN PLACE on the full (B, R, P) estimate z: the other P - C channels are
 // not touched, so no gathered copy and no scatter pass are needed.
 //
+// Codes are uint8 (1..8 bits) or uint16 (9..16 bits).
+//
 // Bound on the H100: memory bytes (read and write 4 bytes of z and read one
-// code byte per element; the side info is B * C * 4 bytes). One thread per
+// or two code bytes per element; the side info is B * C * 4 bytes). One thread per
 // element, channel fastest, so code reads coalesce.
 // Rounding: -fmad=false keeps m + (c -+ 0.5) * step as a multiply then an
 // add, exactly as the plain torch version and the JAX reference.
@@ -22,8 +24,9 @@
 
 namespace {
 
+template <typename CodeT>
 __global__ void consolidate_kernel(float* __restrict__ z,
-                                   const uint8_t* __restrict__ codes,
+                                   const CodeT* __restrict__ codes,
                                    const __half* __restrict__ mins,
                                    const __half* __restrict__ maxs,
                                    const int* __restrict__ sel, long long n,
@@ -45,22 +48,40 @@ __global__ void consolidate_kernel(float* __restrict__ z,
   *zp = fminf(fmaxf(*zp, lo), hi);
 }
 
-}  // namespace
-
-// z (B, R, P) f32, updated in place; codes (B, R, C) u8; mins/maxs (B, C)
-// f16; sel (C,) int32 or null (then P == C).
-extern "C" int baf_consolidate_f32(void* z, const void* codes, const void* mins,
-                                   const void* maxs, const void* sel, int B,
-                                   int R, int P, int C, int levels, int device,
-                                   void* stream) {
+template <typename CodeT>
+int launch(void* z, const void* codes, const void* mins, const void* maxs,
+           const void* sel, int B, int R, int P, int C, int levels,
+           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)B * R * C;
   if (n == 0) return 0;
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
-  consolidate_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (float*)z, (const uint8_t*)codes, (const __half*)mins,
+  consolidate_kernel<CodeT><<<(unsigned)blocks, threads, 0,
+                              (cudaStream_t)stream>>>(
+      (float*)z, (const CodeT*)codes, (const __half*)mins,
       (const __half*)maxs, (const int*)sel, n, R, P, C, levels);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// z (B, R, P) f32, updated in place; codes (B, R, C) uint8 or uint16;
+// mins/maxs (B, C) f16; sel (C,) int32 or null (then P == C).
+extern "C" int baf_consolidate_f32(void* z, const void* codes, const void* mins,
+                                   const void* maxs, const void* sel, int B,
+                                   int R, int P, int C, int levels, int device,
+                                   void* stream) {
+  return launch<uint8_t>(z, codes, mins, maxs, sel, B, R, P, C, levels,
+                         device, stream);
+}
+
+extern "C" int baf_consolidate_f32_u16(void* z, const void* codes,
+                                       const void* mins, const void* maxs,
+                                       const void* sel, int B, int R, int P,
+                                       int C, int levels, int device,
+                                       void* stream) {
+  return launch<uint16_t>(z, codes, mins, maxs, sel, B, R, P, C, levels,
+                          device, stream);
 }

@@ -83,6 +83,11 @@ extern "C" int baf_histogram_u8(const void* codes, void* counts, int K, int C,
   return launch<uint8_t>(codes, counts, K, C, nsym, device, stream);
 }
 
+extern "C" int baf_histogram_u16(const void* codes, void* counts, int K, int C,
+                                 int nsym, int device, void* stream) {
+  return launch<uint16_t>(codes, counts, K, C, nsym, device, stream);
+}
+
 extern "C" int baf_histogram_i32(const void* codes, void* counts, int K, int C,
                                  int nsym, int device, void* stream) {
   return launch<int32_t>(codes, counts, K, C, nsym, device, stream);

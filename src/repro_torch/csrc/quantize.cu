@@ -20,11 +20,15 @@
 //      -65504, widen the max by one fp16 ulp on the bit pattern and cap it
 //      at 65504 (exactly repro/core/quant.py::compute_quant_params).
 //   3. quantize_codes: same grid as (1); re-reads the selected channels
-//      (mostly from L2) and writes uint8 codes
+//      (mostly from L2) and writes the codes
 //      clip(rint((x - m) / max(M - m, 1e-12) * levels), 0, levels).
 // Rounding: built with -fmad=false and IEEE __fdiv_rn/__fsub_rn/__fmul_rn,
 // rintf is round-half-even, so codes and side info are bit-identical to the
 // plain torch version and to the JAX reference.
+// NaN: the min/max reductions propagate NaN, as jnp.min/jnp.max and
+// torch.amin/amax do (fminf/fmaxf would drop it), so an (example, channel)
+// holding a NaN gets NaN fp16 side info, and its codes are 0.
+// Codes are uint8 for 1..8 bits and uint16 for 9..16, as core/quant.py.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,6 +37,14 @@ namespace {
 
 constexpr int kCh = 32;    // channels per block (threadIdx.x)
 constexpr int kRows = 8;   // row slots per block (threadIdx.y)
+
+// NaN-propagating min and max (fminf/fmaxf return the other operand).
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
 
 // Selected channel of group lane c, or -1 when it lies outside [0, P): the
 // callers validate sel_idx on the host; this only keeps a bad index from
@@ -57,8 +69,8 @@ __global__ void minmax_partial(const float* __restrict__ x,
     const float* xb = x + (size_t)b * R * P + p;
     for (int r = r0 + threadIdx.y; r < r1; r += kRows) {
       const float v = xb[(size_t)r * P];
-      mn = fminf(mn, v);
-      mx = fmaxf(mx, v);
+      mn = nan_min(mn, v);
+      mx = nan_max(mx, v);
     }
   }
   __shared__ float smn[kRows][kCh + 1];
@@ -69,9 +81,9 @@ __global__ void minmax_partial(const float* __restrict__ x,
   for (int s = kRows / 2; s > 0; s >>= 1) {
     if (threadIdx.y < s) {
       smn[threadIdx.y][threadIdx.x] =
-          fminf(smn[threadIdx.y][threadIdx.x], smn[threadIdx.y + s][threadIdx.x]);
+          nan_min(smn[threadIdx.y][threadIdx.x], smn[threadIdx.y + s][threadIdx.x]);
       smx[threadIdx.y][threadIdx.x] =
-          fmaxf(smx[threadIdx.y][threadIdx.x], smx[threadIdx.y + s][threadIdx.x]);
+          nan_max(smx[threadIdx.y][threadIdx.x], smx[threadIdx.y + s][threadIdx.x]);
     }
     __syncthreads();
   }
@@ -85,6 +97,7 @@ __global__ void minmax_partial(const float* __restrict__ x,
 __device__ __forceinline__ unsigned short f16_next_up(unsigned short h) {
   if ((h & 0x7FFF) == 0) return 0x0001;   // +-0 -> smallest subnormal
   if (h == 0x7C00) return h;              // +inf stays
+  if ((h & 0x7FFF) > 0x7C00) return h;    // NaN stays
   return (h & 0x8000) ? h - 1 : h + 1;    // towards +inf
 }
 
@@ -98,8 +111,8 @@ __global__ void finalize(const float* __restrict__ pmin,
   if (c < C) {
     for (int rb = threadIdx.y; rb < nrb; rb += kRows) {
       const size_t o = ((size_t)b * nrb + rb) * C + c;
-      mn = fminf(mn, pmin[o]);
-      mx = fmaxf(mx, pmax[o]);
+      mn = nan_min(mn, pmin[o]);
+      mx = nan_max(mx, pmax[o]);
     }
   }
   __shared__ float smn[kRows][kCh + 1];
@@ -109,8 +122,8 @@ __global__ void finalize(const float* __restrict__ pmin,
   __syncthreads();
   if (threadIdx.y != 0 || c >= C) return;
   for (int y = 1; y < kRows; ++y) {
-    mn = fminf(mn, smn[y][threadIdx.x]);
-    mx = fmaxf(mx, smx[y][threadIdx.x]);
+    mn = nan_min(mn, smn[y][threadIdx.x]);
+    mx = nan_max(mx, smx[y][threadIdx.x]);
   }
   __half hmn = __float2half_rn(mn);
   if (__half2float(hmn) < -65504.0f) hmn = __float2half_rn(-65504.0f);
@@ -120,11 +133,12 @@ __global__ void finalize(const float* __restrict__ pmin,
   maxs[b * C + c] = hmx;
 }
 
+template <typename CodeT>
 __global__ void quantize_codes(const float* __restrict__ x,
                                const int* __restrict__ sel,
                                const __half* __restrict__ mins,
                                const __half* __restrict__ maxs,
-                               uint8_t* __restrict__ codes, int R, int P,
+                               CodeT* __restrict__ codes, int R, int P,
                                int C, int levels, int rows_per_block) {
   const int c = blockIdx.x * kCh + threadIdx.x;
   const int b = blockIdx.z;
@@ -134,23 +148,19 @@ __global__ void quantize_codes(const float* __restrict__ x,
   const float rng = fmaxf(__fsub_rn(__half2float(maxs[b * C + c]), m), 1e-12f);
   const float lv = (float)levels;
   const float* xb = x + (size_t)b * R * P + p;
-  uint8_t* cb = codes + (size_t)b * R * C + c;
+  CodeT* cb = codes + (size_t)b * R * C + c;
   const int r0 = blockIdx.y * rows_per_block;
   const int r1 = min(R, r0 + rows_per_block);
   for (int r = r0 + threadIdx.y; r < r1; r += kRows) {
     const float s = __fmul_rn(__fdiv_rn(__fsub_rn(xb[(size_t)r * P], m), rng), lv);
-    cb[(size_t)r * C] = (uint8_t)fminf(fmaxf(rintf(s), 0.0f), lv);
+    cb[(size_t)r * C] = (CodeT)fminf(fmaxf(rintf(s), 0.0f), lv);
   }
 }
 
-}  // namespace
-
-// x (B, R, P) f32; sel (C,) int32 or null (then P == C); codes (B, R, C) u8;
-// mins/maxs (B, C) f16; partials 2 * B * nrb * C f32 scratch.
-extern "C" int baf_quantize_f32(const void* x, const void* sel, void* codes,
-                                void* mins, void* maxs, void* partials, int B,
-                                int R, int P, int C, int levels, int nrb,
-                                int device, void* stream) {
+template <typename CodeT>
+int launch(const void* x, const void* sel, void* codes, void* mins,
+           void* maxs, void* partials, int B, int R, int P, int C, int levels,
+           int nrb, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -163,9 +173,30 @@ extern "C" int baf_quantize_f32(const void* x, const void* sel, void* codes,
                                         pmin, pmax, R, P, C, rpb);
   finalize<<<dim3(grid.x, B), block, 0, s>>>(pmin, pmax, (__half*)mins,
                                                (__half*)maxs, C, nrb);
-  quantize_codes<<<grid, block, 0, s>>>((const float*)x, (const int*)sel,
-                                        (const __half*)mins,
-                                        (const __half*)maxs, (uint8_t*)codes,
-                                        R, P, C, levels, rpb);
+  quantize_codes<CodeT><<<grid, block, 0, s>>>(
+      (const float*)x, (const int*)sel, (const __half*)mins,
+      (const __half*)maxs, (CodeT*)codes, R, P, C, levels, rpb);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (B, R, P) f32; sel (C,) int32 or null (then P == C); codes (B, R, C)
+// uint8 (1..8 bits) or uint16 (9..16 bits); mins/maxs (B, C) f16;
+// partials 2 * B * nrb * C f32 scratch.
+extern "C" int baf_quantize_f32(const void* x, const void* sel, void* codes,
+                                void* mins, void* maxs, void* partials, int B,
+                                int R, int P, int C, int levels, int nrb,
+                                int device, void* stream) {
+  return launch<uint8_t>(x, sel, codes, mins, maxs, partials, B, R, P, C,
+                         levels, nrb, device, stream);
+}
+
+extern "C" int baf_quantize_f32_u16(const void* x, const void* sel,
+                                    void* codes, void* mins, void* maxs,
+                                    void* partials, int B, int R, int P,
+                                    int C, int levels, int nrb, int device,
+                                    void* stream) {
+  return launch<uint16_t>(x, sel, codes, mins, maxs, partials, B, R, P, C,
+                          levels, nrb, device, stream);
 }

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 
 
 class KernelError(RuntimeError):
@@ -125,17 +126,40 @@ QUANTIZE = CudaKernel("quantize", "quantize.cu", {
     # x, sel (nullable), codes, mins, maxs, partials,
     # B, R, P, C, levels, row blocks, device, stream
     "baf_quantize_f32": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "baf_quantize_f32_u16": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 })
 HISTOGRAM = CudaKernel("histogram", "histogram.cu", {
     # codes, counts, K, C, nsym, device, stream
     "baf_histogram_u8": [P, P, I, I, I, I, P],
+    "baf_histogram_u16": [P, P, I, I, I, I, P],
     "baf_histogram_i32": [P, P, I, I, I, I, P],
 })
 CONSOLIDATE = CudaKernel("consolidate", "consolidate.cu", {
     # z (in place), codes, mins, maxs, sel, B, R, P, C, levels, device, stream
     "baf_consolidate_f32": [P, P, P, P, P, I, I, I, I, I, I, P],
+    "baf_consolidate_f32_u16": [P, P, P, P, P, I, I, I, I, I, I, P],
 })
-KERNELS = (QUANTIZE, HISTOGRAM, CONSOLIDATE)
+CDF = CudaKernel("cdf", "cdf.cu", {
+    # counts, cdf, S, C, device, stream
+    "baf_cdf_i32": [P, P, I, I, I, P],
+})
+_FLASH_ARGS = [P, P, P, P,            # q, k, v, o
+               I, I, I, I, I, I,      # B, Sq, Sk, H, KH, hd
+               LL, LL, LL, LL, LL, LL, LL, LL, LL,   # q/k/v strides (B, S, H)
+               I, I, I, P]            # causal, window, device, stream
+FLASH_ATTENTION = CudaKernel("flash_attention", "flash_attention.cu", {
+    "flash_attention_f32": _FLASH_ARGS,
+    "flash_attention_bf16": _FLASH_ARGS,
+})
+_SCAN_ARGS = [P, P, P, P, P, P, P, P,  # q, k, v, ld, u, s0, y, state
+              I, I, I, I, I, I,        # B, S, H, dk, dv, chunk
+              I, I, I, P]              # rwkv, per-channel decay, device, stream
+LINEAR_SCAN = CudaKernel("linear_scan", "linear_scan.cu", {
+    "linear_scan_f32": _SCAN_ARGS,
+    "linear_scan_bf16": _SCAN_ARGS,
+})
+KERNELS = (QUANTIZE, HISTOGRAM, CONSOLIDATE, CDF, FLASH_ATTENTION,
+           LINEAR_SCAN)
 
 
 def build_all() -> float:

@@ -37,9 +37,9 @@ def consolidate_fused(z: torch.Tensor, codes: torch.Tensor,
                       sel_idx: torch.Tensor | None = None) -> torch.Tensor:
     """Clip ``z[..., sel_idx]`` to the received bins, in place; returns ``z``.
 
-    z: (B, R, P) float32 contiguous; codes: (B, R, C) uint8; mins/maxs:
-    (B, C) fp16; sel_idx: (C,) int32 with distinct values in [0, P)
-    (``None`` means C == P).
+    z: (B, R, P) float32 contiguous; codes: (B, R, C) uint8 (1..8 bits)
+    or uint16 (9..16 bits); mins/maxs: (B, C) fp16; sel_idx: (C,) int32
+    with distinct values in [0, P) (``None`` means C == P).
     """
     if z.dim() != 3 or codes.dim() != 3 or mins.dim() != 2 or maxs.dim() != 2:
         raise ValueError("z/codes must be (B, R, *), mins/maxs (B, C)")
@@ -55,9 +55,10 @@ def consolidate_fused(z: torch.Tensor, codes: torch.Tensor,
         return consolidate_plain(z, codes, mins, maxs, bits, sel_idx)
     if z.device.type != "cuda":
         raise ValueError(f"no consolidate kernel for device {z.device}")
-    if not 1 <= bits <= 8:
-        raise ValueError(f"consolidate kernel takes 1..8 bits, got {bits}")
-    tensors = [(z, torch.float32), (codes, torch.uint8),
+    if not 1 <= bits <= 16:
+        raise ValueError(f"consolidate kernel takes 1..16 bits, got {bits}")
+    code_type = torch.uint16 if bits > 8 else torch.uint8
+    tensors = [(z, torch.float32), (codes, code_type),
                (mins, torch.float16), (maxs, torch.float16)]
     if sel_idx is not None:
         tensors.append((sel_idx, torch.int32))
@@ -67,7 +68,8 @@ def consolidate_fused(z: torch.Tensor, codes: torch.Tensor,
                              f"{t.dtype} on {t.device}")
     dev, stream = _build.stream_args(z)
     _build.CONSOLIDATE.launch(
-        "baf_consolidate_f32", z.data_ptr(), codes.data_ptr(),
+        "baf_consolidate_f32_u16" if bits > 8 else "baf_consolidate_f32",
+        z.data_ptr(), codes.data_ptr(),
         mins.data_ptr(), maxs.data_ptr(),
         None if sel_idx is None else sel_idx.data_ptr(), b, r, p, c,
         (1 << bits) - 1, dev, stream)

@@ -1,0 +1,114 @@
+"""Flash attention with GQA: the wrapper and its plain torch version.
+
+``flash_attention`` is the counterpart of ``repro/kernels/ops.py::
+flash_attention`` (GQA) around ``flash_attention_pallas``: a CUDA tensor
+goes through the kernel in ``csrc/flash_attention.cu`` (or the call
+raises); a CPU tensor goes through ``flash_attention_plain``, the
+counterpart of ``repro/kernels/ref.py::flash_attention_ref``. The kernel
+takes every ``Sq``/``Sk`` (it masks the ragged edge itself), reads the
+(B, S, H, hd) inputs through their strides and maps query head ``h`` to kv
+head ``h // (H // KH)``, so no repeat and no transpose is made.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations
+_ENTRIES = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16"}
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_scale(hd: int) -> float:
+    """``1 / sqrt(hd)`` rounded as float32 arithmetic rounds it (IEEE sqrt,
+    then divide), as a Python float: multiplying by it costs no copy to the
+    device, and the kernel uses the same value."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(hd))))
+
+
+def attention_mask(first_pos: int, n: int, sk: int, *, causal: bool,
+                   window: int | None, device=None) -> torch.Tensor:
+    """(n, Sk) bool: does query i, at position ``first_pos + i``, see key j?"""
+    qpos = first_pos + torch.arange(n, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((n, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int | None = None,
+                          q_offset: int | None = None) -> torch.Tensor:
+    """Full-softmax attention in float32: q (B, Sq, H, hd), k/v (B, Sk, KH,
+    hd) with KH | H -> (B, Sq, H, hd) in q's dtype. The kv heads are
+    repeated (``repeat_interleave``: kv head j serves q heads j*g..j*g+g-1)
+    as ``ops.flash_attention`` does before the reference. Query i sits at
+    position i + ``q_offset`` (default ``Sk - Sq``); a row that sees no key
+    is NaN, as in the reference."""
+    h, hd = q.shape[2], q.shape[3]
+    sq, sk, kh = q.shape[1], k.shape[1], k.shape[2]
+    if kh != h:
+        k = k.repeat_interleave(h // kh, dim=2)
+        v = v.repeat_interleave(h // kh, dim=2)
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) \
+        * softmax_scale(hd)
+    mask = attention_mask(sk - sq if q_offset is None else q_offset, sq, sk,
+                          causal=causal, window=window, device=q.device)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KH, hd) with KH | H -> (B, Sq, H, hd)
+    in q's dtype. Causal masking is aligned by ``Sk - Sq``; ``window`` keeps
+    the previous ``window`` keys (the query's own included). Causal calls
+    with Sq > Sk are refused: their first Sq - Sk rows would see no key,
+    where the reference gives NaN and the TPU kernel a mean of v."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, S, heads, hd)")
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, sk, kh, hd) or k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if kh < 1 or h % kh:
+        raise ValueError(f"{kh} kv heads do not divide {h} query heads")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if causal and sq > sk:
+        raise ValueError(f"causal attention needs Sq <= Sk, got Sq {sq} > "
+                         f"Sk {sk}: the first rows would see no key")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    entry = _ENTRIES.get(q.dtype)
+    if entry is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash kernel takes float32 or bfloat16 q, k, v of "
+                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash kernel is built for head dims {HEAD_DIMS}, "
+                         f"got {hd}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must be on one device")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("the head dim of q, k, v must be contiguous")
+    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    dev, stream = _build.stream_args(q)
+    _build.FLASH_ATTENTION.launch(
+        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, sk, h, kh, hd, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], int(causal), 0 if window is None else window, dev,
+        stream)
+    return out

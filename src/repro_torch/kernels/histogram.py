@@ -1,17 +1,21 @@
-"""Per-channel symbol counts for the static rANS tables.
+"""Per-channel symbol counts for the static rANS tables, and their CDF.
 
-``histogram`` is the wrapper: a CUDA tensor goes through the kernel in
-``csrc/histogram.cu`` (or the call raises); a CPU tensor goes through
-``histogram_plain``. Replaces the TPU kernel
-``repro/kernels/histogram.py::histogram_pallas``. On the card path the
-compression plan runs it on the quantize kernel's codes while they are
-still on the card; ``channel_histogram`` serves host numpy codes.
+``histogram`` is the wrapper of the kernel in ``csrc/histogram.cu`` and
+``cdf`` that of ``csrc/cdf.cu``: a CUDA tensor goes through the kernel (or
+the call raises); a CPU tensor goes through ``histogram_plain`` /
+``cdf_plain``. They replace the TPU kernels
+``repro/kernels/histogram.py::histogram_pallas`` and ``cdf_pallas``. On the
+card path the compression plan runs the histogram on the quantize kernel's
+codes while they are still on the card; ``channel_histogram`` serves host
+numpy codes, and ``channel_histogram_cdf`` runs both kernels on its
+``device``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 
 MAX_NSYM = 4096                # bits <= 12
@@ -32,7 +36,8 @@ def histogram(codes: torch.Tensor, nsym: int) -> torch.Tensor:
     """Per-channel counts of a (K, C) code matrix -> (C, nsym) int32.
 
     Values that are negative or >= nsym (the padding sentinel ``nsym``
-    included) are counted nowhere. On the card, codes are uint8 or int32.
+    included) are counted nowhere. On the card, codes are uint8, uint16 or
+    int32.
     """
     if codes.dim() != 2:
         raise ValueError(f"codes must be (K, C), got {tuple(codes.shape)}")
@@ -43,10 +48,11 @@ def histogram(codes: torch.Tensor, nsym: int) -> torch.Tensor:
     if codes.device.type != "cuda":
         raise ValueError(f"no histogram kernel for device {codes.device}")
     entry = {torch.uint8: "baf_histogram_u8",
+             torch.uint16: "baf_histogram_u16",
              torch.int32: "baf_histogram_i32"}.get(codes.dtype)
     if entry is None:
-        raise ValueError(f"histogram kernel takes uint8 or int32 codes, got "
-                         f"{codes.dtype}")
+        raise ValueError(f"histogram kernel takes uint8, uint16 or int32 "
+                         f"codes, got {codes.dtype}")
     if not codes.is_contiguous():
         raise ValueError("codes must be contiguous")
     k, c = codes.shape
@@ -69,3 +75,53 @@ def channel_histogram(codes, bits: int) -> np.ndarray:
     flat = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, c),
                                                  dtype=np.int32))
     return histogram(flat, nsym).numpy().astype(np.int64)
+
+
+def cdf_plain(counts: torch.Tensor) -> torch.Tensor:
+    """counts (S, C) -> exclusive prefix sum along S, int32 (cumsum - counts)."""
+    c32 = counts.to(torch.int32)
+    return (torch.cumsum(c32, dim=0, dtype=torch.int32) - c32)
+
+
+def cdf(counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive CDF along the symbol axis of (S, C) counts -> (S, C) int32.
+
+    The TPU kernel's layout: symbols down the rows, one channel a column.
+    Exact in int32. On the card, counts are int32.
+    """
+    if counts.dim() != 2:
+        raise ValueError(f"counts must be (S, C), got {tuple(counts.shape)}")
+    if counts.device.type == "cpu":
+        return cdf_plain(counts)
+    if counts.device.type != "cuda":
+        raise ValueError(f"no cdf kernel for device {counts.device}")
+    if counts.dtype != torch.int32 or not counts.is_contiguous():
+        raise ValueError("cdf kernel takes contiguous int32 counts, got "
+                         f"{counts.dtype}")
+    s, c = counts.shape
+    out = torch.empty_like(counts)
+    dev, stream = _build.stream_args(counts)
+    _build.CDF.launch("baf_cdf_i32", counts.data_ptr(), out.data_ptr(), s, c,
+                      dev, stream)
+    return out
+
+
+def channel_histogram_cdf(codes, bits: int, *,
+                          device=None) -> tuple[np.ndarray, np.ndarray]:
+    """Counts and exclusive CDF of channel-last codes (..., C), both (C, S)
+    int64 on the host, computed by the histogram and cdf kernels on
+    ``device`` (``None`` = the card; ``"cpu"`` runs the plain versions)."""
+    nsym = 1 << bits
+    arr = np.asarray(codes)
+    if arr.ndim == 0:
+        arr = arr.reshape(1, 1)
+    c = arr.shape[-1]
+    if arr.size == 0 or c == 0:
+        z = np.zeros((c, nsym), np.int64)
+        return z, z.copy()
+    flat = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, c),
+                                                 dtype=np.int32))
+    counts = histogram(flat.to(resolve_device(device)), nsym)   # (C, S)
+    cum = cdf(counts.t().contiguous())                          # (S, C)
+    return (counts.cpu().numpy().astype(np.int64),
+            cum.t().cpu().numpy().astype(np.int64))

@@ -1,0 +1,132 @@
+"""Chunked linear-attention scan (RWKV-6 / Mamba-2): wrapper and plain version.
+
+``linear_scan`` is the counterpart of ``repro/kernels/ops.py::linear_scan``
+around ``linear_scan_pallas``: a CUDA tensor goes through the kernel in
+``csrc/linear_scan.cu`` (or the call raises); a CPU tensor goes through
+``linear_scan_plain``, the chunked algorithm of
+``repro/models/linear_attention.py::chunked_linear_attention`` in float32,
+with its decay factorisation ``exp(la) * exp(-la)`` kept as it is (a long
+chunk overflows exactly where the reference's does). Both clamp the
+log-decay to [LOG_DECAY_MIN, -1e-9], broadcast a (..., 1) decay over dk
+and a (H, dk) bonus over the batch, and read the heads in place from
+(B, S, H, d).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+LOG_DECAY_MIN = -4.0   # clamp: e^{|min|*chunk} must stay inside fp32
+LOG_DECAY_MAX = -1e-9
+MODES = ("rwkv", "ssm")
+_ENTRIES = {torch.float32: "linear_scan_f32",
+            torch.bfloat16: "linear_scan_bf16"}
+_SMEM_BYTES = 227 * 1024
+_DVT = 16               # dv columns per block in csrc/linear_scan.cu
+
+
+def _smem_floats(chunk: int, dk: int) -> int:
+    """Shared memory of one block, as ``smem_floats`` in the CUDA source."""
+    return 4 * chunk * (dk + 1) + chunk * _DVT + chunk * chunk + chunk + dk \
+        + dk * _DVT
+
+
+def linear_scan_plain(q, k, v, log_decay, *, bonus=None, initial_state=None,
+                      chunk: int = 16, mode: str = "rwkv"):
+    """q, k (B, S, H, dk); v (B, S, H, dv); log_decay (B, S, H, dk) or
+    (B, S, H, 1); bonus (H, dk) or None; initial_state (B, H, dk, dv) or
+    None -> (y (B, S, H, dv), final state (B, H, dk, dv)), float32."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    f32 = torch.float32
+    q, k, v = q.to(f32), k.to(f32), v.to(f32)
+    ld = torch.clamp(log_decay.to(f32), LOG_DECAY_MIN, LOG_DECAY_MAX)
+
+    def chunks(t):      # (B, S, H, d) -> (NC, B, H, L, d)
+        return t.reshape(b, s // chunk, chunk, h, t.shape[-1]) \
+            .permute(1, 0, 3, 2, 4)
+
+    qc, kc, vc, ldc = chunks(q), chunks(k), chunks(v), chunks(ld)
+    la = torch.cumsum(ldc, dim=-2)                  # inclusive
+    la_prev = la - ldc                              # exclusive
+    la_end = la[..., -1:, :]
+    la_q = la_prev if mode == "rwkv" else la
+    qd = qc * torch.exp(la_q)
+    kd = kc * torch.exp(-la)
+    k_rem = kc * torch.exp(la_end - la)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=f32, device=q.device),
+                     diagonal=-1 if mode == "rwkv" else 0)
+    scores = torch.einsum("cbhtd,cbhsd->cbhts", qd, kd) * tri
+    y_intra = torch.einsum("cbhts,cbhsv->cbhtv", scores, vc)
+    if mode == "rwkv" and bonus is not None:
+        bq = torch.einsum("cbhtd,hd,cbhtd->cbht", qc, bonus.to(f32), kc)
+        y_intra = y_intra + bq[..., None] * vc
+    state = (torch.zeros((b, h, dk, dv), dtype=f32, device=q.device)
+             if initial_state is None else initial_state.to(f32))
+    y_inter = []
+    for c in range(qc.shape[0]):
+        y_inter.append(torch.einsum("bhtd,bhdv->bhtv", qd[c], state))
+        state = torch.exp(la_end[c][..., 0, :])[..., None] * state \
+            + torch.einsum("bhtd,bhtv->bhdv", k_rem[c], vc[c])
+    y = y_intra + torch.stack(y_inter)
+    return y.permute(1, 0, 3, 2, 4).reshape(b, s, h, dv), state
+
+
+def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
+                chunk: int = 16, mode: str = "rwkv"):
+    """Same contract as :func:`linear_scan_plain`; S must be a multiple of
+    ``chunk``. On the card q, k, v are float32 or bf16 of one dtype."""
+    if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
+            or v.shape[:3] != q.shape[:3]:
+        raise ValueError(f"q, k must be (B, S, H, dk) and v (B, S, H, dv); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    if log_decay.shape[:3] != q.shape[:3] or log_decay.shape[3] not in (1, dk):
+        raise ValueError(f"log_decay {tuple(log_decay.shape)} must be "
+                         f"(B, S, H, dk) or (B, S, H, 1)")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    if bonus is not None and tuple(bonus.shape) != (h, dk):
+        raise ValueError(f"bonus must be (H, dk), got {tuple(bonus.shape)}")
+    if initial_state is not None and \
+            tuple(initial_state.shape) != (b, h, dk, dv):
+        raise ValueError(f"initial_state must be (B, H, dk, dv), got "
+                         f"{tuple(initial_state.shape)}")
+    if q.device.type == "cpu":
+        return linear_scan_plain(q, k, v, log_decay, bonus=bonus,
+                                 initial_state=initial_state, chunk=chunk,
+                                 mode=mode)
+    if q.device.type != "cuda":
+        raise ValueError(f"no linear-scan kernel for device {q.device}")
+    entry = _ENTRIES.get(q.dtype)
+    if entry is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"linear-scan kernel takes float32 or bfloat16 q, "
+                         f"k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if _smem_floats(chunk, dk) * 4 > _SMEM_BYTES:
+        raise ValueError(f"chunk {chunk} x dk {dk} does not fit a block's "
+                         f"shared memory")
+    dev_t = q.device
+    for t in (k, v, log_decay, bonus, initial_state):
+        if t is not None and t.device != dev_t:
+            raise ValueError("all inputs must be on one device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    ld = log_decay.to(torch.float32).contiguous()
+    u = None if bonus is None else bonus.to(torch.float32).contiguous()
+    s0 = None if initial_state is None else \
+        initial_state.to(torch.float32).contiguous()
+    y = torch.empty((b, s, h, dv), dtype=torch.float32, device=dev_t)
+    state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev_t)
+    dev, stream = _build.stream_args(q)
+    _build.LINEAR_SCAN.launch(
+        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), ld.data_ptr(),
+        None if u is None else u.data_ptr(),
+        None if s0 is None else s0.data_ptr(), y.data_ptr(), state.data_ptr(),
+        b, s, h, dk, dv, chunk, int(mode == "rwkv"), int(ld.shape[3] == dk),
+        dev, stream)
+    return y, state

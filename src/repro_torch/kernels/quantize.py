@@ -13,14 +13,15 @@ import torch
 from repro_torch.core.quant import compute_quant_params, quantize
 from repro_torch.kernels import _build
 
-MAX_BITS = 8                   # uint8 codes
+MAX_BITS = 16                  # uint8 codes to 8 bits, uint16 above
 _ROW_BLOCK_MIN = 32            # rows per block of the reduction, at least
 _TARGET_BLOCKS = 264           # about two blocks per SM of an H100
 
 
 def quantize_plain(x: torch.Tensor, bits: int,
                    sel_idx: torch.Tensor | None = None):
-    """x (B, R, P), sel_idx (C,) -> codes (B, R, C) u8, mins/maxs (B, C) f16."""
+    """x (B, R, P), sel_idx (C,) -> codes (B, R, C) u8/u16, mins/maxs (B, C)
+    f16."""
     if sel_idx is not None:
         x = x[..., sel_idx]
     qp = compute_quant_params(x, bits, per_example=True)
@@ -41,7 +42,9 @@ def quantize_fused(x: torch.Tensor, bits: int,
 
     x: (B, R, P) float32, channel-last and contiguous. sel_idx: (C,) int32
     on the same device with values in [0, P) (``None`` takes all P).
-    Returns (codes (B, R, C) uint8, mins (B, C) fp16, maxs (B, C) fp16).
+    Returns (codes (B, R, C), mins (B, C) fp16, maxs (B, C) fp16); codes
+    are uint8 for 1..8 bits and uint16 for 9..16, as ``core.quant``. An
+    (example, channel) holding a NaN gets NaN side info and zero codes.
     """
     if not 1 <= bits <= MAX_BITS:
         raise ValueError(f"quantize kernel codes 1..{MAX_BITS} bits, got {bits}")
@@ -61,7 +64,9 @@ def quantize_fused(x: torch.Tensor, bits: int,
         raise ValueError("sel_idx must be contiguous int32 on x's device")
     b, r, p = x.shape
     c = p if sel_idx is None else sel_idx.numel()
-    codes = torch.empty((b, r, c), dtype=torch.uint8, device=x.device)
+    wide = bits > 8
+    codes = torch.empty((b, r, c), dtype=torch.uint16 if wide else torch.uint8,
+                        device=x.device)
     mins = torch.empty((b, c), dtype=torch.float16, device=x.device)
     maxs = torch.empty((b, c), dtype=torch.float16, device=x.device)
     if codes.numel() == 0:
@@ -71,7 +76,7 @@ def quantize_fused(x: torch.Tensor, bits: int,
                            device=x.device)
     dev, stream = _build.stream_args(x)
     _build.QUANTIZE.launch(
-        "baf_quantize_f32", x.data_ptr(),
+        "baf_quantize_f32_u16" if wide else "baf_quantize_f32", x.data_ptr(),
         None if sel_idx is None else sel_idx.data_ptr(), codes.data_ptr(),
         mins.data_ptr(), maxs.data_ptr(), partials.data_ptr(), b, r, p, c,
         (1 << bits) - 1, nrb, dev, stream)

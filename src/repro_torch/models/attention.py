@@ -1,0 +1,183 @@
+"""GQA attention with RoPE: prefill (full or windowed causal) and one-token
+decode against a KV cache.
+
+Counterpart of ``repro/models/attention.py``. Public tensors keep the JAX
+layout (B, S, H, hd). Prefill attention goes through the flash wrapper
+(``impl="flash"``): on the card every prefill launches the kernel, whatever
+its length, and on the CPU the wrapper runs its plain version.
+``impl="blocked"`` runs ``blocked_attention`` (the JAX package's jnp path:
+the kernel's plain version q block by q block) on any device; the smoke
+check holds the kernel against it. Decode attention is plain torch, as it
+is jnp einsum in the JAX package. The flash-decode branch over a
+sequence-sharded cache waits for the distributed slice (ROADMAP Queue 1
+step 10).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.nn import frozen, normal
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain,
+                                                 softmax_scale)
+
+IMPLS = ("flash", "blocked")
+
+
+# ---------------------------------------------------------------------------
+# RoPE (split halves, not interleaved pairs)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor):
+    """positions (..., S) int -> cos/sin of shape (..., S, head_dim // 2)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    inv = 1.0 / (theta ** exps)
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, hd); cos/sin (B, S, hd/2) or (S, hd/2)."""
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """wq/wk/wv/wo in the JAX (in, out) layout, stored in ``dtype`` (every
+    use casts them to the compute dtype); optional QKV bias."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
+                 head_dim: int, *, qkv_bias: bool = False,
+                 dtype=torch.float32, gen=None, device=None):
+        super().__init__()
+        kw = dict(gen=gen, dtype=dtype, device=device)
+        self.wq = frozen(normal((d_model, n_heads * head_dim), **kw))
+        self.wk = frozen(normal((d_model, n_kv_heads * head_dim), **kw))
+        self.wv = frozen(normal((d_model, n_kv_heads * head_dim), **kw))
+        self.wo = frozen(normal((n_heads * head_dim, d_model), **kw))
+        self.qkv_bias = qkv_bias
+        if qkv_bias:
+            for name, n in (("bq", n_heads), ("bk", n_kv_heads),
+                            ("bv", n_kv_heads)):
+                setattr(self, name, frozen(torch.zeros(
+                    n * head_dim, dtype=dtype, device=device)))
+
+
+def _project_qkv(p: Attention, x, n_heads, n_kv_heads, head_dim, dtype):
+    b, s, _ = x.shape
+    q = x @ p.wq.to(dtype)
+    k = x @ p.wk.to(dtype)
+    v = x @ p.wv.to(dtype)
+    if p.qkv_bias:
+        q = q + p.bq.to(dtype)
+        k = k + p.bk.to(dtype)
+        v = v + p.bv.to(dtype)
+    return (q.reshape(b, s, n_heads, head_dim),
+            k.reshape(b, s, n_kv_heads, head_dim),
+            v.reshape(b, s, n_kv_heads, head_dim))
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+def repeat_kv(k: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, S, K, hd) -> (B, S, H, hd): kv head j serves q heads j*g..j*g+g-1."""
+    kh = k.shape[2]
+    return k if kh == h else k.repeat_interleave(h // kh, dim=2)
+
+
+def blocked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                      window: Optional[int] = None, q_block: int = 1024):
+    """q (B, Sq, H, hd), k/v (B, Sk, KH, hd). The flash kernel's plain
+    version, q block by q block, so the score buffer is (q_block, Sk) per
+    head. Query i sits at position i + ``q_offset``."""
+    return torch.cat([
+        flash_attention_plain(q[:, start:start + q_block], k, v,
+                              causal=causal, window=window,
+                              q_offset=start + q_offset)
+        for start in range(0, q.shape[1], q_block)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+def attention_apply(p: Attention, x, *, n_heads, n_kv_heads, head_dim,
+                    rope_theta, positions=None, causal=True,
+                    window: Optional[int] = None, dtype=None,
+                    impl: str = "flash"):
+    """Self-attention over a prompt, x (B, S, D) -> (B, S, D). (The
+    cross-attention of the encoder-decoder comes with the audio archs.)"""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    dtype = dtype or x.dtype
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, dtype)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    cos, sin = rope_freqs(head_dim, rope_theta, positions)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if impl == "flash":
+        out = flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = blocked_attention(q, k, v, causal=causal, window=window)
+    return out.reshape(b, s, n_heads * head_dim) @ p.wo.to(dtype)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # (B, S_max, K, hd)
+    v: torch.Tensor
+    length: int            # tokens currently in the cache
+
+
+def init_kv_cache(batch, max_len, n_kv_heads, head_dim, dtype=torch.bfloat16,
+                  device=None) -> KVCache:
+    shape = (batch, max_len, n_kv_heads, head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device), length=0)
+
+
+def attention_decode(p: Attention, x, cache: KVCache, *, n_heads, n_kv_heads,
+                     head_dim, rope_theta, dtype=None):
+    """One-token decode: x (B, 1, D) against ``cache``; returns (y (B, 1, D),
+    cache with the token appended). The cache tensors are updated in place
+    (the JAX package returns new arrays); only the filled prefix enters the
+    softmax, where the JAX package masks the rest to exactly zero."""
+    dtype = dtype or x.dtype
+    b = x.shape[0]
+    pos = cache.length
+    if pos >= cache.k.shape[1]:
+        raise ValueError(f"KV cache of {cache.k.shape[1]} positions is full")
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, dtype)
+    cos, sin = rope_freqs(head_dim, rope_theta,
+                          torch.arange(pos, pos + 1, device=x.device))
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
+    keys = cache.k[:, :pos + 1].float()
+    vals = cache.v[:, :pos + 1].float()
+    g = n_heads // n_kv_heads
+    qg = q.reshape(b, 1, n_kv_heads, g, head_dim).float()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, keys) \
+        * softmax_scale(head_dim)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, vals)
+    out = out.reshape(b, 1, n_heads * head_dim).to(dtype)
+    return out @ p.wo.to(dtype), KVCache(k=cache.k, v=cache.v, length=pos + 1)

@@ -1,7 +1,9 @@
-"""Layers of the split CNN and the BaF predictor, channel-last (B, H, W, C).
+"""Layers of the split CNN, the BaF predictor and the LM zoo.
 
-Counterpart of ``repro/nn.py`` for the layers the BaF pipeline uses: conv,
-conv-transpose, inference BN and its inverse, leaky ReLU, PReLU, dense.
+Counterpart of ``repro/nn.py`` for the layers the port uses: conv,
+conv-transpose, inference BN and its inverse, leaky ReLU, PReLU, dense
+(channel-last (B, H, W, C)), and for the LMs RMSNorm, LayerNorm and
+squared ReLU over the last dim, computed in float32 and cast back.
 Public tensors stay NHWC as in the JAX package. Convolutions run on the
 NCHW view ``x.permute(0, 3, 1, 2)`` of the NHWC tensor, which PyTorch
 treats as ``channels_last`` memory, so no layout copy is made.
@@ -46,6 +48,14 @@ def he_normal(shape, fan_in: int, gen: torch.Generator | None) -> torch.Tensor:
 def lecun_normal(shape, fan_in: int,
                  gen: torch.Generator | None) -> torch.Tensor:
     return math.sqrt(1.0 / max(fan_in, 1)) * torch.randn(shape, generator=gen)
+
+
+def normal(shape, std: float = 0.02, *, gen: torch.Generator | None = None,
+           dtype=torch.float32, device=None) -> torch.Tensor:
+    """``std * N(0, 1)`` drawn in float32 on ``device`` (the generator's
+    device), then cast to ``dtype``."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * std).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +132,41 @@ def prelu_apply(alpha: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Norms and activations of the LM zoo (last dim; float32 inside)
+# ---------------------------------------------------------------------------
+
+RMS_EPS = 1e-6
+LN_EPS = 1e-5
+
+
+def rmsnorm_apply(x: torch.Tensor, scale: torch.Tensor, *,
+                  eps: float = RMS_EPS) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * scale`` in float32, cast back."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def layernorm_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    *, eps: float = LN_EPS) -> torch.Tensor:
+    """LayerNorm with the population variance, in float32, cast back."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x).square()
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """An inference weight: a parameter without gradient."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
 # Modules holding the weights (built on the CPU; callers move them)
 # ---------------------------------------------------------------------------
 
@@ -180,3 +225,30 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense_apply(x, self.weight, self.bias)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm over the last dim; ``scale`` in ``dtype`` (float32 in the LMs)."""
+
+    def __init__(self, dim: int, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device),
+                                  requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm_apply(x, self.scale)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim with ``scale`` and ``bias``."""
+
+    def __init__(self, dim: int, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device),
+                                  requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device),
+                                 requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm_apply(x, self.scale, self.bias)
+

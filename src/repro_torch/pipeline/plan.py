@@ -14,7 +14,8 @@ static ``rans`` backend, counts their symbols with the histogram kernel
 while the codes are still on the card; codes, side info and counts then
 come to the host in one copy, and the host coder takes the counts as they
 are. The wire bytes equal the JAX package's for the same codes.
-The quantize and consolidate kernels code 1..8 bits, so the plan does too.
+Codes are uint8 up to 8 bits and uint16 from 9 to 16, as in the JAX
+package; the rANS backends take up to 12 bits.
 """
 from __future__ import annotations
 
@@ -30,13 +31,13 @@ from repro_torch.core.split import (SplitStats, restore_codes,
                                     restore_codes_fused)
 from repro_torch.core.tiling import tile_batch, tile_grid, untile_batch
 from repro_torch.device import resolve_device
-from repro_torch.kernels.histogram import histogram
-from repro_torch.kernels.quantize import MAX_BITS, quantize_fused
+from repro_torch.kernels.histogram import MAX_NSYM, histogram
+from repro_torch.kernels.quantize import quantize_fused
 from repro_torch.obs import hooks
 from repro_torch.pipeline.op import OperatingPoint
 
-_NP_DTYPES = {torch.uint8: np.uint8, torch.float16: np.float16,
-              torch.int32: np.int32}
+_NP_DTYPES = {torch.uint8: np.uint8, torch.uint16: np.uint16,
+              torch.float16: np.float16, torch.int32: np.int32}
 
 
 @dataclass(frozen=True, eq=False)
@@ -103,10 +104,6 @@ class CompressionPlan:
         self.fused = fused
         self.consolidation = consolidation
         self.device = resolve_device(device)
-        if self.op.bits > MAX_BITS:
-            raise ValueError(f"the port's plan codes 1..{MAX_BITS} bits (the "
-                             f"quantize kernel's uint8 codes), got "
-                             f"{self.op.bits}")
         sel = np.asarray(spec.sel_idx)
         if sel.ndim != 1 or sel.shape[0] != self.op.c:
             raise ValueError(
@@ -131,8 +128,8 @@ class CompressionPlan:
 
     # -- encode (edge side) -------------------------------------------------
     def _quantize(self, z):
-        """z (B, H, W, P) -> codes (B, H, W, C) u8, mins/maxs (B, C) fp16,
-        all on the plan's device."""
+        """z (B, H, W, P) -> codes (B, H, W, C) u8/u16, mins/maxs (B, C)
+        fp16, all on the plan's device."""
         z = self.to_device(z).contiguous()
         b, h, w, p = z.shape
         with hooks.timed("pipeline.quantize"):
@@ -181,7 +178,7 @@ class CompressionPlan:
     def encode(self, z) -> WireBlob:
         """Quantize/entropy-code the split activation ``z`` (B, H, W, P)."""
         codes, mins, maxs = self._quantize(z)
-        if self.op.wire_backend == "rans":
+        if self.op.wire_backend == "rans" and 1 << self.op.bits <= MAX_NSYM:
             c = self.op.c
             with hooks.timed("pipeline.histogram"):
                 counts = histogram(codes.view(-1, c), 1 << self.op.bits)

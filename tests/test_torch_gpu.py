@@ -6,9 +6,13 @@ with an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: quantize codes and side info, and histogram counts, must be
-exact; consolidation is held bit-identical (the kernel keeps the
-reference's operation order, built with -fmad=false).
+Tolerances: quantize codes and side info, histogram counts and the CDF
+must be exact (NaN side info at the same places); consolidation is held
+bit-identical (the kernel keeps the reference's operation order, built with
+-fmad=false). Flash attention: atol/rtol 2e-5 in float32 and 3e-2 in bf16
+(the JAX kernel tests' tolerances; the kernel sums in another order and
+rounds its output to bf16 once, as the plain version does). Linear scan:
+1e-4 (float32 sums in another order over 16-step chunks).
 """
 import numpy as np
 import pytest
@@ -16,7 +20,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.consolidate import consolidate_fused, consolidate_plain
-from repro_torch.kernels.histogram import histogram, histogram_plain
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.histogram import cdf, cdf_plain, histogram, \
+    histogram_plain
+from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
 from repro_torch.kernels.quantize import quantize_fused, quantize_plain
 
 pytestmark = pytest.mark.gpu
@@ -33,7 +41,7 @@ def _x(rng, shape, scale, offset=0.0):
     return rng.normal(size=shape).astype(np.float32) * scale + offset
 
 
-@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("bits", [2, 8, 12, 16])
 @pytest.mark.parametrize("shape,c", [((2, 4096, 256), 64), ((3, 100, 40), 40),
                                      ((1, 77, 64), 33)])
 @pytest.mark.parametrize("scale", [1.0, 1e-6, 1e5])
@@ -48,18 +56,43 @@ def test_quantize_kernel_matches_plain(cuda, bits, shape, c, scale):
     want = quantize_plain(x, bits, sel.long())
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
-        assert torch.equal(g.view(torch.uint8) if g.dtype == torch.uint8
-                           else g.view(torch.int16),
-                           w.view(torch.uint8) if w.dtype == torch.uint8
-                           else w.view(torch.int16))
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def _bits(t):
+    """Integer view for exact comparison (fp16 and uint16 as int16)."""
+    return t if t.dtype == torch.uint8 else t.view(torch.int16)
+
+
+def test_quantize_kernel_propagates_nan(cuda):
+    """A NaN makes its (example, channel) side info NaN and its codes 0,
+    as jnp.min/max and the plain version give; other channels unchanged."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(_x(rng, (2, 16, 4), 1.0)).to(cuda)
+    x[1, 3, 2] = float("nan")
+    for bits in (8, 12):
+        got = quantize_fused(x, bits)
+        want = quantize_plain(x, bits)
+        torch.cuda.synchronize()
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            assert bool(torch.isnan(g[1, 2])) and int(torch.isnan(g).sum()) == 1
+            keep = ~torch.isnan(w)
+            assert torch.equal(_bits(g)[keep], _bits(w)[keep])
+        assert torch.equal(got[0], want[0])
+        assert int(got[0][1, :, 2].to(torch.int32).abs().sum()) == 0
 
 
 @pytest.mark.parametrize("bits", [1, 4, 8, 12])
 @pytest.mark.parametrize("shape", [(4096, 64), (1000, 5), (32768, 64)])
-def test_histogram_kernel_matches_plain(cuda, bits, shape):
+@pytest.mark.parametrize("wide", [False, True])
+def test_histogram_kernel_matches_plain(cuda, bits, shape, wide):
     rng = np.random.default_rng(1)
     nsym = 1 << bits
-    if bits <= 8:
+    if wide:
+        codes = torch.from_numpy(
+            rng.integers(0, nsym, size=shape).astype(np.uint16)).to(cuda)
+    elif bits <= 8:
         codes = torch.from_numpy(
             rng.integers(0, nsym, size=shape).astype(np.uint8)).to(cuda)
     else:
@@ -71,7 +104,7 @@ def test_histogram_kernel_matches_plain(cuda, bits, shape):
     assert torch.equal(got, histogram_plain(codes, nsym))
 
 
-@pytest.mark.parametrize("bits", [3, 8])
+@pytest.mark.parametrize("bits", [3, 8, 12, 16])
 @pytest.mark.parametrize("shape,c", [((8, 4096, 256), 64), ((2, 100, 64), 64)])
 def test_consolidate_kernel_matches_plain(cuda, bits, shape, c):
     rng = np.random.default_rng(2)
@@ -86,11 +119,118 @@ def test_consolidate_kernel_matches_plain(cuda, bits, shape, c):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("bits", [8, 12])
+@pytest.mark.parametrize("shape", [(256, 64), (4096, 64), (4096, 5),
+                                   (1000, 70)])
+def test_cdf_kernel_matches_plain(cuda, bits, shape):
+    rng = np.random.default_rng(3)
+    counts = torch.from_numpy(rng.integers(0, 1 << bits, size=shape)
+                              .astype(np.int32)).to(cuda)
+    got = cdf(counts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cdf_plain(counts))
+
+
+FLASH_CASES = [
+    # B, Sq, Sk, H, KH, hd, causal, window
+    (2, 512, 512, 28, 4, 128, True, None),      # qwen2-7b prefill, GQA 7
+    (1, 256, 256, 4, 4, 64, True, None),        # g = 1, hd 64
+    (2, 200, 200, 8, 2, 64, True, None),        # ragged S
+    (1, 128, 128, 4, 2, 128, False, None),      # non-causal
+    (1, 300, 300, 4, 1, 64, True, 100),         # window
+    (1, 64, 256, 7, 1, 128, True, None),        # Sq < Sk (chunked prefill)
+    (2, 77, 131, 4, 2, 16, True, 33),           # ragged, window, Sq < Sk
+    (1, 96, 96, 2, 2, 32, False, 40),           # window, not causal
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, case):
+    b, sq, sk, h, kh, hd, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((b, sq, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, sk, kh, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, sk, kh, hd), generator=g, device=cuda).to(dtype)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_reads_strided_inputs(cuda):
+    """q, k, v sliced out of one fused projection, not contiguous."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((2, 130, 4 + 2 + 2, 64), generator=g, device=cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v),
+                               atol=2e-5, rtol=2e-5)
+
+
+SCAN_CASES = [
+    # B, S, H, dk, dv, chunk, mode, per-channel decay, bonus, initial state
+    (2, 512, 40, 64, 64, 16, "rwkv", True, True, False),   # rwkv6-3b prefill
+    (2, 1024, 40, 64, 64, 16, "rwkv", True, True, True),   # its ingest block
+    (2, 64, 4, 16, 16, 8, "rwkv", True, True, True),       # smoke width
+    (1, 96, 3, 32, 48, 16, "rwkv", True, False, False),
+    (2, 128, 4, 64, 64, 16, "ssm", False, False, True),    # scalar decay
+    (1, 64, 2, 16, 40, 8, "ssm", True, False, False),      # ragged dv tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_linear_scan_kernel_matches_plain(cuda, dtype, case):
+    b, s, h, dk, dv, chunk, mode, per_channel, bonus, init = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(shape, generator=g, device=cuda) * scale
+
+    q, k = rnd(b, s, h, dk).to(dtype), rnd(b, s, h, dk).to(dtype)
+    v = rnd(b, s, h, dv, scale=1.0).to(dtype)
+    ld = -torch.exp(rnd(b, s, h, dk if per_channel else 1) - 1.0)
+    u = rnd(h, dk) if bonus else None
+    s0 = rnd(b, h, dk, dv) if init else None
+    got = linear_scan(q, k, v, ld, bonus=u, initial_state=s0, chunk=chunk,
+                      mode=mode)
+    torch.cuda.synchronize()
+    want = linear_scan_plain(q, k, v, ld, bonus=u, initial_state=s0,
+                             chunk=chunk, mode=mode)
+    for gt, wt in zip(got, want):
+        assert gt.dtype == torch.float32 and gt.shape == wt.shape
+        torch.testing.assert_close(gt, wt, atol=1e-4, rtol=1e-4)
+
+
+def test_smoke_lms_on_the_card_match_the_cpu(cuda):
+    """Smoke-scale qwen2 and rwkv6 in float32 from the same weights: the
+    kernels on the card against the plain versions on the CPU, 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import init_lm, lm_forward
+    for arch in ("qwen2_7b", "rwkv6_3b"):
+        cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+        cpu = init_lm(cfg, seed=3, device="cpu")
+        card = init_lm(cfg, seed=3, device="cpu").to(cuda)
+        tokens = torch.randint(0, cfg.vocab, (2, 96),
+                               generator=torch.Generator().manual_seed(4))
+        want = lm_forward(cpu, tokens=tokens)[0]
+        got = lm_forward(card, tokens=tokens.to(cuda))[0]
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
 def test_kernels_count_their_launches(cuda):
     x = torch.ones((1, 64, 32), device=cuda)
     before = [k.launches for k in _build.KERNELS]
     codes, mins, maxs = quantize_fused(x, 8)
-    histogram(codes.view(64, 32), 256)
+    counts = histogram(codes.view(64, 32), 256)
     consolidate_fused(x, codes, mins, maxs, 8)
+    cdf(counts.t().contiguous())
+    q = torch.ones((1, 64, 2, 16), device=cuda)
+    flash_attention(q, q, q)
+    linear_scan(q, q, q, -q, chunk=16)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(_build.KERNELS, before)] == [1, 1, 1]
+    assert [k.launches - b for k, b in zip(_build.KERNELS, before)] == \
+        [1, 1, 1, 1, 1, 1]

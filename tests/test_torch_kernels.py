@@ -1,10 +1,11 @@
-"""The port's quantize, histogram and consolidate against the JAX package.
+"""The port's quantize, histogram, CDF and consolidate against the JAX
+package.
 
 On the CPU each kernel wrapper runs its plain torch version; these tests
 hold that version to the JAX reference functions and to the Pallas kernels
-in interpret mode, on the same numpy inputs. Codes, side info and counts
-must be bit-identical; consolidation is held at the JAX kernel test's
-atol of 1e-5.
+in interpret mode, on the same numpy inputs. Codes, side info, counts and
+the CDF must be bit-identical (NaN side info at the same places);
+consolidation is held at the JAX kernel test's atol of 1e-5.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,12 +15,16 @@ import torch
 from repro.core import quant as jq
 from repro.kernels import ref
 from repro.kernels.consolidate import consolidate_pallas
+from repro.kernels.histogram import cdf_pallas
 from repro.kernels.histogram import channel_histogram as jax_channel_histogram
+from repro.kernels.histogram import \
+    channel_histogram_cdf as jax_channel_histogram_cdf
 from repro.kernels.histogram import histogram_pallas
 from repro.kernels.quantize import quantize_pallas
 from repro_torch.core import quant as tq
 from repro_torch.kernels.consolidate import consolidate_fused
-from repro_torch.kernels.histogram import channel_histogram, histogram
+from repro_torch.kernels.histogram import (cdf, channel_histogram,
+                                          channel_histogram_cdf, histogram)
 from repro_torch.kernels.quantize import quantize_fused
 
 # (scale, offset): ordinary, shifted, tiny, fp16-subnormal, beyond fp16
@@ -42,7 +47,7 @@ def _bits_equal(a, b):
     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("bits", [1, 4, 8])
+@pytest.mark.parametrize("bits", [1, 4, 8, 12, 16])
 @pytest.mark.parametrize("scale,offset", CASES)
 @pytest.mark.parametrize("per_example", [True, False])
 def test_quant_functions_bit_identical(bits, scale, offset, per_example):
@@ -90,6 +95,26 @@ def test_quantize_gathers_selected_channels():
         _bits_equal(t.numpy(), j)
 
 
+@pytest.mark.parametrize("bits", [8, 12])
+def test_quantize_nan_matches_jax(bits):
+    """A NaN makes its (example, channel) side info NaN and its codes 0, as
+    core.quant gives; every other channel is bit-identical."""
+    x = _x(9, (2, 16, 4), 1.0, 0.0)
+    x[1, 3, 2] = np.nan
+    jqp = jq.compute_quant_params(jnp.asarray(x), bits, per_example=True)
+    jcodes = np.asarray(jq.quantize(jnp.asarray(x), jqp))
+    codes, mins, maxs = quantize_fused(torch.from_numpy(x), bits)
+    for got, want in ((mins, jqp.mins), (maxs, jqp.maxs)):
+        got = got.numpy()
+        want = np.asarray(want).reshape(got.shape)
+        nan = np.isnan(want)
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        assert nan[1, 2] and nan.sum() == 1
+        _bits_equal(got[~nan], want[~nan])
+    _bits_equal(codes.numpy(), jcodes)
+    assert not codes.numpy()[1, :, 2].any()
+
+
 @pytest.mark.parametrize("bits", [1, 4, 8, 12])
 def test_histogram_plain_matches_pallas_and_bincount(bits):
     nsym = 1 << bits
@@ -113,6 +138,50 @@ def test_channel_histogram_matches_jax():
     assert got.dtype == want.dtype == np.int64
     np.testing.assert_array_equal(got, want)
     assert channel_histogram(np.empty((0, 4), np.uint8), 8).shape == (4, 256)
+
+
+@pytest.mark.parametrize("bits", [1, 8, 12])
+@pytest.mark.parametrize("shape", [(256, 8), (4096, 5), (1000, 70)])
+def test_cdf_plain_matches_pallas(bits, shape):
+    counts = np.random.default_rng(bits).integers(
+        0, 1 << bits, size=shape).astype(np.int32)
+    got = cdf(torch.from_numpy(counts))
+    assert got.dtype == torch.int32
+    want = np.asarray(cdf_pallas(jnp.asarray(counts), interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.cumsum(counts, axis=0) - counts)
+
+
+@pytest.mark.parametrize("bits", [4, 8, 12])
+def test_channel_histogram_cdf_matches_jax(bits):
+    codes = np.random.default_rng(bits).integers(0, 1 << bits,
+                                                 size=(2, 30, 7))
+    got = channel_histogram_cdf(codes, bits, device="cpu")
+    want = jax_channel_histogram_cdf(codes, bits, interpret=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.int64 and g.shape == (7, 1 << bits)
+        np.testing.assert_array_equal(g, w)
+    empty = channel_histogram_cdf(np.empty((0, 3), np.int32), 4,
+                                  device="cpu")
+    assert [e.shape for e in empty] == [(3, 16), (3, 16)]
+
+
+@pytest.mark.parametrize("bits", [10, 16])
+def test_consolidate_plain_wide_codes_match_ref(bits):
+    rng = np.random.default_rng(bits)
+    x = rng.normal(size=(2, 100, 16)).astype(np.float32)
+    codes, mins, maxs = quantize_fused(torch.from_numpy(x), bits)
+    assert codes.dtype == torch.uint16
+    est = x + rng.normal(size=x.shape).astype(np.float32) * 0.3
+    got = consolidate_fused(torch.from_numpy(est.copy()), codes, mins, maxs,
+                            bits)
+    want = ref.consolidate_ref(jnp.asarray(est),
+                               jnp.asarray(codes.numpy().astype(np.uint16)),
+                               jnp.asarray(mins.numpy()),
+                               jnp.asarray(maxs.numpy()), bits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("bits", [3, 8])
@@ -165,6 +234,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
         quantize_fused(meta, 8)
     with pytest.raises(ValueError, match="no histogram kernel"):
         histogram(torch.empty((4, 4), dtype=torch.uint8, device="meta"), 256)
+    with pytest.raises(ValueError, match="no cdf kernel"):
+        cdf(torch.empty((4, 4), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="no consolidate kernel"):
         consolidate_fused(meta, torch.empty((1, 4, 4), dtype=torch.uint8,
                                             device="meta"),

@@ -1,0 +1,125 @@
+"""The port's linear scan and linear attention against the JAX package.
+
+On the CPU the scan wrapper runs its plain version, the chunked algorithm
+of ``models/linear_attention.py``. It is held to the JAX Pallas scan
+(``ops.linear_scan``, interpret mode) and to the JAX chunked engine at
+1e-4, and to the recurrent oracle ``reference_scan`` at 1e-3 (the chunked
+factorisation rounds differently from the step-by-step recurrence), over
+both modes, per-channel and scalar decay, with and without a bonus and an
+initial state. Inputs are numpy draws from fixed seeds.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops
+from repro.models import linear_attention as JL
+from repro_torch.kernels.linear_scan import linear_scan
+from repro_torch.models import linear_attention as TL
+
+
+def _inputs(seed, b=2, s=64, h=3, dk=16, dv=8, per_channel=True,
+            bonus=True, init=True):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    q = (rng.normal(size=(b, s, h, dk)) * 0.5).astype(f)
+    k = (rng.normal(size=(b, s, h, dk)) * 0.5).astype(f)
+    v = rng.normal(size=(b, s, h, dv)).astype(f)
+    ld = -np.exp(rng.normal(size=(b, s, h, dk if per_channel else 1)) * 0.7
+                 - 1.0).astype(f)
+    u = (rng.normal(size=(h, dk)) * 0.3).astype(f) if bonus else None
+    s0 = rng.normal(size=(b, h, dk, dv)).astype(f) if init else None
+    return q, k, v, ld, u, s0
+
+
+def _jax(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _torch(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("per_channel", [True, False])
+@pytest.mark.parametrize("mode", ["rwkv", "ssm"])
+def test_plain_scan_matches_jax(mode, per_channel, init):
+    q, k, v, ld, u, s0 = _inputs(0, per_channel=per_channel,
+                                 bonus=mode == "rwkv", init=init)
+    jargs = [_jax(a) for a in (q, k, v, ld)]
+    kw = dict(bonus=_jax(u), initial_state=_jax(s0), mode=mode)
+    y, st = linear_scan(*[_torch(a) for a in (q, k, v, ld)], bonus=_torch(u),
+                        initial_state=_torch(s0), chunk=8, mode=mode)
+    assert y.dtype == st.dtype == torch.float32
+    want_kernel = ops.linear_scan(*jargs, chunk=8, **kw)
+    want_chunked = JL.chunked_linear_attention(*jargs, chunk=8, **kw)
+    want_ref = JL.reference_scan(*jargs, **kw)
+    for want, tol in ((want_kernel, 1e-4), (want_chunked, 1e-4),
+                      (want_ref, 1e-3)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want[0]), atol=tol,
+                                   rtol=tol)
+        np.testing.assert_allclose(st.numpy(), np.asarray(want[1]), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("mode", ["rwkv", "ssm"])
+def test_reference_scan_and_step_match_jax(mode):
+    q, k, v, ld, u, s0 = _inputs(1, s=12, bonus=mode == "rwkv")
+    want = JL.reference_scan(*[_jax(a) for a in (q, k, v, ld)], bonus=_jax(u),
+                             initial_state=_jax(s0), mode=mode)
+    got = TL.reference_scan(*[_torch(a) for a in (q, k, v, ld)],
+                            bonus=_torch(u), initial_state=_torch(s0),
+                            mode=mode)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+    jy, jst = JL.linear_attention_step(
+        *[_jax(a[:, 3]) for a in (q, k, v, ld)], _jax(s0), bonus=_jax(u),
+        mode=mode)
+    ty, tst = TL.linear_attention_step(
+        *[_torch(a[:, 3]) for a in (q, k, v, ld)], _torch(s0),
+        bonus=_torch(u), mode=mode)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-6)
+    np.testing.assert_allclose(tst.numpy(), np.asarray(jst), atol=1e-6)
+
+
+def test_bf16_inputs_widen_like_jax():
+    q, k, v, ld, u, s0 = _inputs(2)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = JL.chunked_linear_attention(*jb, jnp.asarray(ld), bonus=_jax(u),
+                                       initial_state=_jax(s0), chunk=8)
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = TL.chunked_linear_attention(*tb, _torch(ld), bonus=_torch(u),
+                                      initial_state=_torch(s0), chunk=8)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_long_chunk_overflows_like_the_reference():
+    """chunk 32 at the clamp (-4 per step) takes exp(-la) past float32: the
+    factorisation is kept, so the port gives the reference's inf/NaN."""
+    q, k, v, ld, u, _ = _inputs(3, s=64, init=False)
+    ld = np.full_like(ld, -4.0)
+    want = JL.chunked_linear_attention(*[_jax(a) for a in (q, k, v, ld)],
+                                       bonus=_jax(u), chunk=32)
+    got = TL.chunked_linear_attention(*[_torch(a) for a in (q, k, v, ld)],
+                                      bonus=_torch(u), chunk=32)
+    assert not np.isfinite(np.asarray(want[0])).all()
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               atol=1e-4, rtol=1e-4, equal_nan=True)
+    np.testing.assert_array_equal(np.isnan(got[0].numpy()),
+                                  np.isnan(np.asarray(want[0])))
+
+
+def test_scan_wrapper_validates():
+    q, k, v, ld, u, s0 = (_torch(a) for a in _inputs(4, s=16))
+    with pytest.raises(ValueError, match="divisible"):
+        linear_scan(q, k, v, ld, chunk=5)
+    with pytest.raises(ValueError, match="mode"):
+        linear_scan(q, k, v, ld, mode="mamba")
+    with pytest.raises(ValueError, match="log_decay"):
+        linear_scan(q, k, v, ld[..., :3])
+    with pytest.raises(ValueError, match="no linear-scan kernel"):
+        linear_scan(q.to("meta"), k.to("meta"), v.to("meta"), ld.to("meta"))

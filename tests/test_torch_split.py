@@ -140,6 +140,34 @@ def test_slice_end_to_end_matches_jax(system, backend, fused):
         np.asarray(cnn_cloud(s["params"], jrest)), **TOL)
 
 
+@pytest.mark.parametrize("backend,bits", [
+    ("rans", 10), ("rans", 12), ("rans-ctx", 10), ("rans-ctx", 12),
+    ("zlib", 16), ("raw", 16)])
+def test_wide_codes_end_to_end_match_jax(system, backend, bits):
+    """9..16-bit codes (uint16): the same wire bytes and decoded batch as
+    the JAX plan, and a close restore (the rANS backends go to 12 bits)."""
+    s = system
+    z = np.asarray(cnn_edge(s["params"], jnp.asarray(s["img"]))[1])
+    jplan = jpipe.compile(jpipe.OperatingPoint(c=C, bits=bits,
+                                               backend=backend),
+                          jpipe.ModelSpec(sel_idx=s["sel"], params=s["params"],
+                                          baf_params=s["baf"]))
+    tplan = tpipe.compile(tpipe.OperatingPoint(c=C, bits=bits,
+                                               backend=backend),
+                          tpipe.ModelSpec(sel_idx=s["sel"], params=s["model"],
+                                          baf_params=s["tbaf"]), device="cpu")
+    jblobs = [jplan.encode(z[i:i + 1]) for i in range(2)]
+    tblobs = [tplan.encode(z[i:i + 1]) for i in range(2)]
+    for jb, tb in zip(jblobs, tblobs):
+        assert tb.data == jb.data
+    jdec, tdec = jplan.decode_batch(jblobs), tplan.decode_batch(tblobs)
+    assert tdec.codes.dtype == np.uint16
+    for name in ("codes", "mins", "maxs"):
+        np.testing.assert_array_equal(getattr(tdec, name), getattr(jdec, name))
+    np.testing.assert_allclose(tplan.restore(tdec).numpy(),
+                               np.asarray(jplan.restore(jdec)), **TOL)
+
+
 def test_engine_matches_jax_engine(system):
     s = system
     jeng = JEngine(s["params"], s["baf"], s["sel"], bits=BITS, backend="rans")
@@ -155,9 +183,12 @@ def test_plan_validates_its_inputs(system):
     s = system
     spec = tpipe.ModelSpec(sel_idx=s["sel"], params=s["model"],
                            baf_params=s["tbaf"])
-    with pytest.raises(ValueError, match="1..8 bits"):
-        tpipe.compile(tpipe.OperatingPoint(c=C, bits=10, backend="rans"),
-                      spec, device="cpu")
+    with pytest.raises(ValueError, match="1..16"):
+        tpipe.OperatingPoint(c=C, bits=17, backend="raw")
+    z = np.zeros((1, 4, 4, s["model"].cfg.split_p), np.float32)
+    with pytest.raises(ValueError, match="1..12 bits"):      # as in JAX
+        tpipe.compile(tpipe.OperatingPoint(c=C, bits=16, backend="rans"),
+                      spec, device="cpu").encode(z)
     dup = tpipe.ModelSpec(sel_idx=np.zeros(C, np.int64))
     with pytest.raises(ValueError, match="distinct"):
         tpipe.compile(tpipe.OperatingPoint(c=C, bits=BITS), dup, device="cpu")
