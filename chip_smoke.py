@@ -15,10 +15,12 @@ package ``repro``. Phases, each printing lines before the last:
   3. kernels against their plain torch versions on the card: the BaF
      kernels at the slice's shapes (B=8, R=64*64, P=256, C=64, bits=8) plus
      edge cases (NaN, 12 bits); cdf at 8 and 12 bits; flash attention (f32
-     and bf16, causal or not, window, Sq < Sk, GQA 7 and 1, hd 64 and 128,
-     ragged S, the qwen2-7b prefill's shape); the linear scan (rwkv with
-     bonus, ssm, per-channel and scalar decay, with and without an initial
-     state, the rwkv6-3b prefill's and ingest's shapes);
+     and bf16, causal or not, window, Sq < Sk, GQA 7 and 1, hd 16, 64 and
+     128, ragged S, the qwen2-7b prefill's shape; bf16 q, k, v sliced from
+     one fused qkv tensor); the linear scan (rwkv with bonus, ssm,
+     per-channel and scalar decay, with and without an initial state, the
+     rwkv6-3b prefill's and ingest's shapes; chunk 32 at the decay clamp,
+     NaN where the plain version has NaN);
   4. the BaF main path at the paper's full width (YOLO front at 512x512,
      split tensor 64x64x256, C=64, 8 bits, static rANS, fused restore):
      eight one-image requests through edge -> plan.encode ->
@@ -37,13 +39,15 @@ package ``repro``. Phases, each printing lines before the last:
   6. rwkv6-3b at its full published config (32 layers): B=2, a 512-token
      prefill (32 scan launches), a 4096-token long ingest in blocks of 1024
      (128 launches) held against one 4096-token prefill, 16 decode steps
-     from the ingest state;
+     from the ingest state; the top kernels of a prefill, of the ingest
+     and of a decode step;
   7. both LMs at smoke scale in float32 from the same seeded weights: the
      kernels on the card against the plain versions on the CPU;
   8. times: each kernel's device time at its path's shapes (torch.profiler)
      beside its bound, its plain version and, where one PyTorch call
-     computes the same function, that call; BaF stage times; LM prefill,
-     decode and ingest times, peak memory and the top kernels of a prefill.
+     computes the same function, that call; the linear scan twice, at the
+     prefill's shape (its launches in the prefill) and at the ingest
+     block's (``linear_scan/ingest_block``, its launches in the ingest).
 
 Then one JSON line with every kernel's numbers, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any failed
@@ -125,27 +129,46 @@ def event_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILER_SESSIONS = 5
+
+
+def _device_rows(run, activities):
+    """Run ``run()`` under ``torch.profiler`` -> ([(device us, kernel
+    name)], run's result). A session that records no device activity at all
+    (seen in a few percent of sessions on the card, in this script and in
+    its earlier versions alike) is run again, up to PROFILER_SESSIONS; then
+    it raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    for attempt in range(PROFILER_SESSIONS):
+        with profile(activities=activities) as prof:
+            out = run()
+        rows = [(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)), e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if sum(us for us, _ in rows) > 0:
+            return rows, out
+        print(f"torch.profiler recorded no CUDA device time (session "
+              f"{attempt + 1} of {PROFILER_SESSIONS})")
+    raise RuntimeError("torch.profiler recorded no CUDA device time")
+
+
 def device_ms(fn, iters: int = 20) -> float:
     """Device time per call: the summed durations of the kernels, copies and
     memsets ``fn`` puts on the card, from ``torch.profiler``; host launch
-    time is not in it. Raises when the profiler sees no device time."""
+    time is not in it."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            total_us += getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0.0))
-    if not total_us > 0:
-        raise RuntimeError("torch.profiler recorded no CUDA device time")
-    return total_us / 1e3 / iters
+    rows, _ = _device_rows(run, [ProfilerActivity.CUDA])
+    return sum(us for us, _ in rows) / 1e3 / iters
 
 
 def _numeric(t):
@@ -332,6 +355,21 @@ def check_lm_kernels(dev) -> dict:
             if not ok:
                 raise AssertionError("flash kernel differs from plain")
             errs["flash_attention"] = max(errs["flash_attention"], err)
+    # bf16 q, k, v sliced from one fused qkv tensor: read through strides
+    qkv = torch.randn((2, 130, 8 + 2 + 2, 128), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    sync(dev)
+    err = max_abs_diff([(got, want)])
+    tol = FLASH_TOL["bfloat16"]
+    print(f"flash bfloat16 strided q, k, v from one (2, 130, 12, 128) qkv "
+          f"tensor, strides {q.stride()}: max abs diff {err!r} (tolerance "
+          f"{tol})")
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError("flash kernel differs on strided inputs")
+    errs["flash_attention"] = max(errs["flash_attention"], err)
 
     scan_cases = [
         # B, S, H, dk, dv, chunk, mode, per-channel, bonus, initial state
@@ -365,7 +403,40 @@ def check_lm_kernels(dev) -> dict:
             if not ok:
                 raise AssertionError("linear-scan kernel differs from plain")
             errs["linear_scan"] = max(errs["linear_scan"], err)
+    errs["linear_scan"] = max(errs["linear_scan"], scan_overflow_case(dev))
     return errs
+
+
+def scan_overflow_case(dev) -> float:
+    """chunk 32 with every decay at the clamp (-4): exp(-la) overflows and
+    exp(la) underflows. The factorisation is kept, so the kernel's NaNs
+    stand exactly where the plain version's do; the rest within SCAN_TOL."""
+    import torch
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, s_, h, dk, dv = 2, 128, 4, 64, 64
+    q, k = (torch.randn((b, s_, h, dk), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((b, s_, h, dv), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    ld = torch.full((b, s_, h, dk), -4.0, device=dev)
+    u = torch.randn((h, dk), generator=gen, device=dev) * 0.5
+    got = linear_scan(q, k, v, ld, bonus=u, chunk=32)
+    want = linear_scan_plain(q, k, v, ld, bonus=u, chunk=32)
+    sync(dev)
+    nan = torch.isnan(want[0])
+    same_nan = bool(torch.equal(torch.isnan(got[0]), nan))
+    ok = same_nan and int(nan.sum()) > 0 and all(
+        torch.allclose(g, w, atol=SCAN_TOL, rtol=SCAN_TOL, equal_nan=True)
+        for g, w in zip(got, want))
+    err = max_abs_diff(zip(got, want))
+    print(f"linear scan chunk 32 at the decay clamp: {int(nan.sum())} NaN "
+          f"of {nan.numel()} outputs in the plain version, kernel's NaN at "
+          f"the same positions: {same_nan}; max abs diff elsewhere {err!r} "
+          f"(tolerance {SCAN_TOL})")
+    if not ok:
+        raise AssertionError("linear-scan kernel differs on overflow")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -831,34 +902,29 @@ def rwkv_path(dev) -> dict:
           f"included)")
     profile_top(dev, "rwkv6-3b prefill", lambda: prefill(model,
                                                          {"tokens": prompt}))
+    profile_top(dev, f"rwkv6-3b ingest of {RWKV_LONG} tokens",
+                lambda: ingest(model, long_toks))
     profile_top(dev, "rwkv6-3b decode step", lambda: step(model, cache, tok))
     del model, cache, logits, full
     torch.cuda.empty_cache()
-    return dict(launches=launches, times=times, checks=checks)
+    return dict(launches=launches, times=times, checks=checks,
+                n_prefill=n_prefill, n_ingest=n_ingest)
 
 
-def profile_top(dev, label: str, fn, top: int = 6) -> None:
+def profile_top(dev, label: str, fn, top: int = 8) -> None:
     """Device time of one call by kernel name, and the device's busy share
     of the call's wall time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         t0 = time.perf_counter()
         fn()
         sync(dev)
-        wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            rows.append((us, e.key))
+        return time.perf_counter() - t0
+    rows, wall = _device_rows(run, [ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
     busy = sum(us for us, _ in rows)
-    if not busy > 0:
-        raise RuntimeError("torch.profiler recorded no CUDA device time")
     rows.sort(reverse=True)
     print(f"{label}: device busy {busy / 1e3!r} ms of {wall * 1e3!r} ms wall "
           f"under the profiler (busy share {busy / 1e6 / wall!r}); top "
@@ -1013,7 +1079,8 @@ def time_lm_kernels(dev, row, gen) -> list:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.histogram import cdf, cdf_plain
-    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
+    from repro_torch.kernels.linear_scan import (_scratch_floats, linear_scan,
+                                                 linear_scan_plain)
 
     def timed(fn):
         return device_ms(fn), event_ms(fn)
@@ -1049,8 +1116,8 @@ def time_lm_kernels(dev, row, gen) -> list:
         f"library F.scaled_dot_product_attention(enable_gqa=True) on "
         f"(B, H, S, hd) copies", flops=flops, peak=BF16_FLOPS))
 
-    first = True
-    for s_, init in ((RWKV_PROMPT, False), (RWKV_BLOCK, True)):
+    for name, s_, init in (("linear_scan", RWKV_PROMPT, False),
+                           ("linear_scan/ingest_block", RWKV_BLOCK, True)):
         b, h, dk, dv, L = RWKV_B, 40, 64, 64, 16
         qs = torch.randn((b, s_, h, dk), generator=g, device=dev) * 0.5
         ks = torch.randn((b, s_, h, dk), generator=g, device=dev) * 0.5
@@ -1073,17 +1140,17 @@ def time_lm_kernels(dev, row, gen) -> list:
         per_chunk = (2 * pairs * dk + 2 * pairs * dv + 2 * L * dk * dv
                      + 2 * L * dk * dv + 3 * L * dk + 5 * L * dk)
         flops = float(b * h * nc * per_chunk)
-        r = row("linear_scan", "src/repro_torch/csrc/linear_scan.cu",
-                "src/repro/kernels/linear_scan.py:80",
-                timed(lambda: linear_scan(qs, ks, vs, ld, **kw)),
-                timed(lambda: linear_scan_plain(qs, ks, vs, ld, **kw)),
-                nbytes, None,
-                f"rwkv6-3b {'ingest block' if init else 'prefill'} B={b} "
-                f"S={s_} H={h} dk=dv={dk} chunk {L}, rwkv with bonus"
-                f"{', initial state' if init else ''}", flops=flops)
-        if first:
-            out.append(r)
-            first = False
+        out.append(row(
+            name, "src/repro_torch/csrc/linear_scan.cu",
+            "src/repro/kernels/linear_scan.py:80",
+            timed(lambda: linear_scan(qs, ks, vs, ld, **kw)),
+            timed(lambda: linear_scan_plain(qs, ks, vs, ld, **kw)),
+            nbytes, None,
+            f"rwkv6-3b {'ingest block' if init else 'prefill'} B={b} "
+            f"S={s_} H={h} dk=dv={dk} chunk {L}, rwkv with bonus"
+            f"{', initial state' if init else ''}; scratch "
+            f"{_scratch_floats(b, h, nc, L, dk, dv) * 4} bytes",
+            flops=flops))
     return out
 
 
@@ -1127,8 +1194,11 @@ def main() -> int:
     qwen = qwen_path(dev)
     rwkv = rwkv_path(dev)
     launches["flash_attention"] = qwen["launches"]["flash_attention"]
-    launches["linear_scan"] = rwkv["launches"]["linear_scan"]
+    # the scan's two rows: its launches in the prefill and in the ingest
+    launches["linear_scan"] = rwkv["n_prefill"]
+    launches["linear_scan/ingest_block"] = rwkv["n_ingest"]
     lms_card_vs_cpu(dev)
+    errs["linear_scan/ingest_block"] = errs["linear_scan"]
     rows = time_kernels(dev, errs, launches)
     print(f"total {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": rows}))

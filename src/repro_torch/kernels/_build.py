@@ -152,6 +152,7 @@ FLASH_ATTENTION = CudaKernel("flash_attention", "flash_attention.cu", {
     "flash_attention_bf16": _FLASH_ARGS,
 })
 _SCAN_ARGS = [P, P, P, P, P, P, P, P,  # q, k, v, ld, u, s0, y, state
+              P,                       # scratch from pass A to pass B
               I, I, I, I, I, I,        # B, S, H, dk, dv, chunk
               I, I, I, P]              # rwkv, per-channel decay, device, stream
 LINEAR_SCAN = CudaKernel("linear_scan", "linear_scan.cu", {

@@ -7,7 +7,9 @@ raises); a CPU tensor goes through ``flash_attention_plain``, the
 counterpart of ``repro/kernels/ref.py::flash_attention_ref``. The kernel
 takes every ``Sq``/``Sk`` (it masks the ragged edge itself), reads the
 (B, S, H, hd) inputs through their strides and maps query head ``h`` to kv
-head ``h // (H // KH)``, so no repeat and no transpose is made.
+head ``h // (H // KH)``, so no repeat and no transpose is made. bf16 runs
+on the tensor cores (wgmma) and needs 16-byte-aligned bases and strides;
+the call raises on others. float32 runs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -67,6 +69,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _check_16_byte_aligned(name: str, t: torch.Tensor) -> None:
+    """The bf16 kernel copies rows in 16-byte pieces (``cp.async``): the
+    base and every stride it steps by must be multiples of 16 bytes."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"bf16 flash kernel needs {name} at a 16-byte "
+                         f"aligned address, got {t.data_ptr():#x}")
+    for d in range(3):
+        if t.shape[d] > 1 and t.stride(d) * t.element_size() % 16:
+            raise ValueError(f"bf16 flash kernel needs {name}'s strides in "
+                             f"multiples of 16 bytes, got {t.stride()} "
+                             f"elements of {t.element_size()} bytes")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
@@ -104,6 +119,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k, v must be on one device")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dim of q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_16_byte_aligned(name, t)
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     dev, stream = _build.stream_args(q)
     _build.FLASH_ATTENTION.launch(

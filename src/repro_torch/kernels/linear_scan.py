@@ -23,13 +23,33 @@ MODES = ("rwkv", "ssm")
 _ENTRIES = {torch.float32: "linear_scan_f32",
             torch.bfloat16: "linear_scan_bf16"}
 _SMEM_BYTES = 227 * 1024
-_DVT = 16               # dv columns per block in csrc/linear_scan.cu
 
 
-def _smem_floats(chunk: int, dk: int) -> int:
-    """Shared memory of one block, as ``smem_floats`` in the CUDA source."""
-    return 4 * chunk * (dk + 1) + chunk * _DVT + chunk * chunk + chunk + dk \
-        + dk * _DVT
+_MAX_DK = 128          # the state rows a thread of the carry pass holds
+_JS = 16               # dv columns per block of the carry pass
+
+
+def _r4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _smem_floats(chunk: int, dk: int, dv: int) -> int:
+    """Shared memory of the larger of the kernel's two passes, as
+    ``smem_floats_a`` and ``smem_floats_b`` in the CUDA source (rows over
+    dk padded to a multiple of 4, plus 4 in pass A; rows over dv to a
+    multiple of 64)."""
+    dk4, dv64 = _r4(dk), (dv + 63) // 64 * 64
+    a = 4 * chunk * (dk4 + 4) + chunk * dv64 + _r4(chunk * chunk + chunk + dk)
+    stage = chunk * dk4 + chunk * (dk4 + 4) + 2 * chunk * _JS + dk4
+    return max(a, 2 * stage + dk4 * _JS)
+
+
+def _scratch_floats(b: int, h: int, nc: int, chunk: int, dk: int,
+                    dv: int) -> int:
+    """Floats of the pass-A-to-pass-B scratch, ``scratch_chunk_floats`` in
+    the CUDA source for each of the B * H * (S / chunk) chunks."""
+    dk4, dv64 = _r4(dk), (dv + 63) // 64 * 64
+    return b * h * nc * (2 * chunk * dk4 + 2 * chunk * dv64 + dk4)
 
 
 def linear_scan_plain(q, k, v, log_decay, *, bonus=None, initial_state=None,
@@ -108,9 +128,10 @@ def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
         raise ValueError(f"linear-scan kernel takes float32 or bfloat16 q, "
                          f"k, v of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if _smem_floats(chunk, dk) * 4 > _SMEM_BYTES:
-        raise ValueError(f"chunk {chunk} x dk {dk} does not fit a block's "
-                         f"shared memory")
+    if _smem_floats(chunk, dk, dv) * 4 > _SMEM_BYTES or dk > _MAX_DK:
+        raise ValueError(f"chunk {chunk}, dk {dk}, dv {dv} do not fit the "
+                         f"kernel: a block's shared memory and dk <= "
+                         f"{_MAX_DK}")
     dev_t = q.device
     for t in (k, v, log_decay, bonus, initial_state):
         if t is not None and t.device != dev_t:
@@ -122,11 +143,15 @@ def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
         initial_state.to(torch.float32).contiguous()
     y = torch.empty((b, s, h, dv), dtype=torch.float32, device=dev_t)
     state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev_t)
+    # scratch: each chunk's k_rem, qd, v, y_intra and decays, from the
+    # chunk pass to the carry pass
+    scratch = torch.empty(_scratch_floats(b, h, s // chunk, chunk, dk, dv),
+                          dtype=torch.float32, device=dev_t)
     dev, stream = _build.stream_args(q)
     _build.LINEAR_SCAN.launch(
         entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), ld.data_ptr(),
         None if u is None else u.data_ptr(),
         None if s0 is None else s0.data_ptr(), y.data_ptr(), state.data_ptr(),
-        b, s, h, dk, dv, chunk, int(mode == "rwkv"), int(ld.shape[3] == dk),
-        dev, stream)
+        scratch.data_ptr(), b, s, h, dk, dv, chunk,
+        int(mode == "rwkv"), int(ld.shape[3] == dk), dev, stream)
     return y, state

@@ -11,8 +11,9 @@ must be exact (NaN side info at the same places); consolidation is held
 bit-identical (the kernel keeps the reference's operation order, built with
 -fmad=false). Flash attention: atol/rtol 2e-5 in float32 and 3e-2 in bf16
 (the JAX kernel tests' tolerances; the kernel sums in another order and
-rounds its output to bf16 once, as the plain version does). Linear scan:
-1e-4 (float32 sums in another order over 16-step chunks).
+rounds its output to bf16 once, as the plain version does; in bf16 it
+feeds P to the tensor cores as a high and a low bf16 part). Linear scan: 1e-4 (float32 sums in
+another order over 16-step chunks), NaN where the plain version has NaN.
 """
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.consolidate import consolidate_fused, consolidate_plain
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.histogram import cdf, cdf_plain, histogram, \
     histogram_plain
@@ -170,6 +171,58 @@ def test_flash_kernel_reads_strided_inputs(cuda):
                                atol=2e-5, rtol=2e-5)
 
 
+def test_flash_bf16_kernel_reads_strided_inputs(cuda):
+    """bf16 q, k, v sliced out of one fused projection: the tensor-core
+    kernel reads them in place through their 16-byte-aligned strides."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((2, 130, 4 + 2 + 2, 64), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("shape", [(2, 200, 200, 8, 2, True, None),
+                                   (1, 77, 131, 4, 4, True, 50),
+                                   (1, 128, 64, 2, 1, False, None)])
+def test_flash_bf16_tensor_cores_every_head_dim(cuda, hd, shape):
+    """Every head dim through the wgmma kernel: one 128B swizzle for all,
+    lines padded to 64 values below hd 64."""
+    b, sq, sk, h, kh, causal, window = shape
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn((b, s, n, hd), generator=g, device=cuda)
+               .to(torch.bfloat16) for s, n in ((sq, h), (sk, kh), (sk, kh)))
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+def test_flash_bf16_refuses_unaligned_inputs(cuda):
+    """A base or a stride that is not a multiple of 16 bytes raises, and
+    nothing is launched: no other kernel and no plain version takes over."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    flat = torch.randn(1 + 64 * 2 * 64, generator=g, device=cuda)
+    flat = flat.to(torch.bfloat16)
+    shifted = flat[1:].view(1, 64, 2, 64)           # base 2 bytes off
+    ok = flat[:-1].view(1, 64, 2, 64)
+    padded = torch.randn((1, 64, 2, 68), generator=g, device=cuda) \
+        .to(torch.bfloat16)[..., :64]               # head stride 136 bytes
+    before = _build.FLASH_ATTENTION.launches
+    for q, k, v in ((shifted, ok, ok), (ok, shifted, ok), (ok, ok, padded),
+                    (padded, ok, ok)):
+        with pytest.raises(ValueError, match="16"):
+            flash_attention(q, k, v, causal=True)
+    assert _build.FLASH_ATTENTION.launches == before
+
+
 SCAN_CASES = [
     # B, S, H, dk, dv, chunk, mode, per-channel decay, bonus, initial state
     (2, 512, 40, 64, 64, 16, "rwkv", True, True, False),   # rwkv6-3b prefill
@@ -203,6 +256,39 @@ def test_linear_scan_kernel_matches_plain(cuda, dtype, case):
     for gt, wt in zip(got, want):
         assert gt.dtype == torch.float32 and gt.shape == wt.shape
         torch.testing.assert_close(gt, wt, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_scan_kernel_overflows_like_plain(cuda, dtype):
+    """chunk 32 with every decay at the clamp (-4): exp(-la) overflows and
+    exp(la) underflows; the kernel keeps the factorisation, so its NaNs
+    stand exactly where the plain version's do."""
+    b, s, h, dk, dv = 2, 64, 3, 32, 16
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k = (torch.randn((b, s, h, dk), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=g, device=cuda).to(dtype)
+    ld = torch.full((b, s, h, dk), -4.0, device=cuda)
+    u = torch.randn((h, dk), generator=g, device=cuda)
+    got = linear_scan(q, k, v, ld, bonus=u, chunk=32)
+    torch.cuda.synchronize()
+    want = linear_scan_plain(q, k, v, ld, bonus=u, chunk=32)
+    assert not bool(torch.isfinite(want[0]).all())
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    for gt, wt in zip(got, want):
+        torch.testing.assert_close(gt, wt, atol=1e-4, rtol=1e-4,
+                                   equal_nan=True)
+
+
+def test_linear_scan_refuses_dk_over_128(cuda):
+    """The carry pass holds at most 128 state rows a block: a wider dk
+    raises before any launch."""
+    q = torch.ones((1, 16, 1, 136), device=cuda)
+    v = torch.ones((1, 16, 1, 8), device=cuda)
+    before = _build.LINEAR_SCAN.launches
+    with pytest.raises(ValueError, match="dk <= 128"):
+        linear_scan(q, q, v, -q, chunk=16)
+    assert _build.LINEAR_SCAN.launches == before
 
 
 def test_smoke_lms_on_the_card_match_the_cpu(cuda):
