@@ -14,19 +14,24 @@ package ``repro``. Phases, each printing lines before the last:
      all started together;
   3. kernels against their plain torch versions on the card: the BaF
      kernels at the slice's shapes (B=8, R=64*64, P=256, C=64, bits=8) plus
-     edge cases (NaN, 12 bits); cdf at 8 and 12 bits; flash attention (f32
-     and bf16, causal or not, window, Sq < Sk, GQA 7 and 1, hd 16, 64 and
-     128, ragged S, the qwen2-7b prefill's shape; bf16 q, k, v sliced from
-     one fused qkv tensor); the linear scan (rwkv with bonus, ssm,
-     per-channel and scalar decay, with and without an initial state, the
-     rwkv6-3b prefill's and ingest's shapes; chunk 32 at the decay clamp,
-     NaN where the plain version has NaN);
+     edge cases (quantize: NaN, 12 bits, signed zeros against the plain
+     version on the CPU, R=1 and 7 (also under a cluster of 16 blocks),
+     R=4095, R=65536 beyond what the blocks hold, C=1, 8 and 33,
+     sel_idx=None; histogram: one symbol everywhere, K=3 (also under a
+     cluster of 16 blocks), C=5 peaked); cdf at 8 and 12 bits; flash
+     attention (f32 and bf16, causal or not, window, Sq < Sk, GQA 7 and 1,
+     hd 16, 64 and 128, ragged S, the qwen2-7b prefill's shape; bf16 q, k,
+     v sliced from one fused qkv tensor); the linear scan (rwkv with
+     bonus, ssm, per-channel and scalar decay, with and without an initial
+     state, the rwkv6-3b prefill's and ingest's shapes; chunk 32 at the
+     decay clamp, NaN where the plain version has NaN);
   4. the BaF main path at the paper's full width (YOLO front at 512x512,
      split tensor 64x64x256, C=64, 8 bits, static rANS, fused restore):
      eight one-image requests through edge -> plan.encode ->
      plan.decode_batch -> plan.restore -> cloud, with the kernels' launch
-     counts read over this phase alone; the consolidate kernel held bit for
-     bit against its plain version on the path's own estimate; the restore
+     counts read over this phase alone; the histogram kernel held exact
+     against its plain version on the path's own codes, and the
+     consolidate kernel bit for bit on the path's own estimate; the restore
      checked against the plan compiled with fused=False (and bit for bit
      with cudnn.deterministic) and against the same path run on the CPU for
      the first request; then ``channel_histogram_cdf`` on each request's
@@ -43,9 +48,10 @@ package ``repro``. Phases, each printing lines before the last:
      and of a decode step;
   7. both LMs at smoke scale in float32 from the same seeded weights: the
      kernels on the card against the plain versions on the CPU;
-  8. times: each kernel's device time at its path's shapes (torch.profiler)
-     beside its bound, its plain version and, where one PyTorch call
-     computes the same function, that call; the linear scan twice, at the
+  8. times: each kernel's device time and device operations per call at
+     its path's shapes (torch.profiler) beside its bound, its plain version
+     and, where one PyTorch call computes the same function, that call; the
+     histogram also on the path's own codes; the linear scan twice, at the
      prefill's shape (its launches in the prefill) and at the ingest
      block's (``linear_scan/ingest_block``, its launches in the ingest).
 
@@ -134,30 +140,35 @@ PROFILER_SESSIONS = 5
 
 def _device_rows(run, activities):
     """Run ``run()`` under ``torch.profiler`` -> ([(device us, kernel
-    name)], run's result). A session that records no device activity at all
-    (seen in a few percent of sessions on the card, in this script and in
-    its earlier versions alike) is run again, up to PROFILER_SESSIONS; then
-    it raises."""
+    name, count)], run's result). A session that records no device activity
+    at all (seen in a few percent of sessions on the card, in this script
+    and in its earlier versions alike) is run again, up to
+    PROFILER_SESSIONS; then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
     for attempt in range(PROFILER_SESSIONS):
         with profile(activities=activities) as prof:
             out = run()
         rows = [(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0)), e.key)
+                         getattr(e, "self_cuda_time_total", 0.0)), e.key,
+                 e.count)
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
-        if sum(us for us, _ in rows) > 0:
+        if sum(r[0] for r in rows) > 0:
             return rows, out
         print(f"torch.profiler recorded no CUDA device time (session "
               f"{attempt + 1} of {PROFILER_SESSIONS})")
     raise RuntimeError("torch.profiler recorded no CUDA device time")
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time per call: the summed durations of the kernels, copies and
-    memsets ``fn`` puts on the card, from ``torch.profiler``; host launch
-    time is not in it."""
+def device_ms(fn, iters: int = 20) -> tuple[float, int]:
+    """(device ms per call, device operations per call): the kernels,
+    copies and memsets ``fn`` puts on the card, from ``torch.profiler``;
+    host launch time is not in it. Each operation counts as its mean
+    duration times the times it ran per call (its count over ``iters``,
+    rounded): a session sometimes records one event fewer than ran (a
+    count of 19 for 20 calls), which a plain sum over ``iters`` would
+    read as a call 5% shorter."""
     import torch
     from torch.profiler import ProfilerActivity
     fn()
@@ -167,8 +178,15 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    rows, _ = _device_rows(run, [ProfilerActivity.CUDA])
-    return sum(us for us, _ in rows) / 1e3 / iters
+    for attempt in range(PROFILER_SESSIONS):
+        rows, _ = _device_rows(run, [ProfilerActivity.CUDA])
+        per_call = [(us / n, round(n / iters)) for us, _, n in rows if n]
+        ops = sum(k for _, k in per_call)
+        if ops:
+            return sum(us * k for us, k in per_call) / 1e3, ops
+        print(f"torch.profiler recorded too few device operations for "
+              f"{iters} calls (session {attempt + 1} of {PROFILER_SESSIONS})")
+    raise RuntimeError("torch.profiler recorded too few device operations")
 
 
 def _numeric(t):
@@ -209,22 +227,32 @@ def check_kernels(dev) -> dict:
     import torch
     from repro_torch.kernels.consolidate import (consolidate_fused,
                                                  consolidate_plain)
-    from repro_torch.kernels.histogram import histogram, histogram_plain
-    from repro_torch.kernels.quantize import quantize_fused, quantize_plain
+    from repro_torch.kernels.histogram import HistogramPlan
+    from repro_torch.kernels.quantize import (QuantizePlan, launch_kernel,
+                                              quantize_fused, quantize_plain,
+                                              quantize_plan)
 
     gen = torch.Generator().manual_seed(0)
     errs = {}
 
-    def quantize_case(b, r, p, c, scale, offset, bits=BITS):
+    def quantize_case(b, r, p, c, scale, offset, bits=BITS, every=False,
+                      plan=None):
+        """``plan``: one the wrapper would not pick, through
+        launch_kernel."""
         x = (torch.randn((b, r, p), generator=gen) * scale + offset).to(dev)
         x[0, :, 3] = offset                          # a constant channel
-        sel = torch.randperm(p, generator=gen)[:c].to(torch.int32).to(dev)
-        got = quantize_fused(x, bits, sel)
-        want = quantize_plain(x, bits, sel.long())
+        sel = None if every else \
+            torch.randperm(p, generator=gen)[:c].to(torch.int32).to(dev)
+        got = quantize_fused(x, bits, sel) if plan is None else \
+            launch_kernel(x, bits, sel, plan)
+        want = quantize_plain(x, bits, None if every else sel.long())
         sync(dev)
         ok = all(bits_equal(g, w) for g, w in zip(got, want))
+        plan = plan or quantize_plan(b, r, c)
         print(f"quantize B={b} R={r} P={p} C={c} scale={scale:g} "
-              f"offset={offset:g}: {'bit-identical' if ok else 'DIFFERS'}")
+              f"offset={offset:g} bits={bits}"
+              f"{' sel_idx=None' if every else ''} (plan {tuple(plan)}): "
+              f"{'bit-identical' if ok else 'DIFFERS'}")
         if not ok:
             raise AssertionError("quantize kernel differs from plain version")
         return got, max_abs_diff(zip(got, want))
@@ -237,27 +265,40 @@ def check_kernels(dev) -> dict:
         quantize_case(2, R, P, C, 1e-7, 0.5)[1],              # fp16 subnormal
         quantize_case(3, 1000, P, 40, 3.0, 0.5, bits=5)[1],   # ragged R, C
         quantize_case(B, R, P, C, 1.0, 0.0, bits=12)[1],      # uint16 codes
-        quantize_nan_case(dev, gen))
-
-    def histogram_case(codes, nsym, label):
-        got = histogram(codes, nsym)
-        want = histogram_plain(codes, nsym)
-        sync(dev)
-        ok = bool(torch.equal(got, want))
-        print(f"histogram {label} K={codes.shape[0]} C={codes.shape[1]} "
-              f"nsym={nsym}: {'exact' if ok else 'DIFFERS'}")
-        if not ok:
-            raise AssertionError("histogram kernel differs from plain version")
-        return max_abs_diff([(got, want)])
+        quantize_case(1, 1, P, C, 1.0, 0.0)[1],
+        quantize_case(1, 7, P, C, 1.0, 0.0)[1],
+        quantize_case(1, 1, P, C, 1.0, 0.0,                    # R < cluster
+                      plan=QuantizePlan(8, 16, 1, True))[1],
+        quantize_case(1, 7, P, C, 1.0, 0.0,
+                      plan=QuantizePlan(8, 16, 1, True))[1],
+        quantize_case(1, R - 1, P, C, 1.0, 0.0)[1],  # R not a multiple
+        quantize_case(1, 65536, P, C, 1.0, 0.0)[1],  # rows read twice
+        quantize_case(2, R, P, 1, 1.0, 0.0)[1],               # C = 1
+        quantize_case(2, R, P, 33, 1.0, 0.0, bits=12)[1],     # C=33
+        quantize_case(2, R, P, 8, 1.0, 0.0)[1],               # C=8
+        quantize_case(2, R, P, P, 1.0, 0.0, every=True)[1],   # sel_idx=None
+        quantize_nan_case(dev, gen),
+        quantize_zeros_case(dev, gen))
 
     big = torch.randint(0, 256, (B * R, C), generator=gen, dtype=torch.uint8)
     wide = torch.randint(-2, 4098, (4096, 64), generator=gen,
                          dtype=torch.int32)
     wide[::5] = 4096                                        # padding sentinel
+    peaked = torch.from_numpy(np.minimum(
+        np.random.default_rng(0).geometric(0.6, size=(1000, 5)) + 99, 4095)
+        .astype(np.uint16))
     errs["histogram"] = max(
-        histogram_case(codes.view(R, C), 1 << BITS, "u8 main path"),
-        histogram_case(big.to(dev), 256, "u8 slice"),
-        histogram_case(wide.to(dev), 4096, "i32 bits=12 with sentinels"))
+        histogram_case(dev, codes.view(R, C), 1 << BITS, "u8 main shape"),
+        histogram_case(dev, big.to(dev), 256, "u8 slice"),
+        histogram_case(dev, wide.to(dev), 4096, "i32 bits=12 with sentinels"),
+        histogram_case(dev, torch.full((R, C), 17, dtype=torch.uint8,
+                                       device=dev), 256, "u8 one symbol"),
+        histogram_case(dev, torch.full((R, C), 4000, dtype=torch.int32,
+                                       device=dev), 4096, "i32 one symbol"),
+        histogram_case(dev, big[:3].to(dev), 256, "u8 few rows"),
+        histogram_case(dev, big[:3].to(dev), 256, "u8 K < cluster",
+                       plan=HistogramPlan(8, 16, 1, 0)),
+        histogram_case(dev, peaked.to(dev), 4096, "u16 peaked, C=5"))
 
     def consolidate_case(b, r, p, c, bits):
         z = torch.randn((b, r, p), generator=gen).to(dev)
@@ -279,6 +320,56 @@ def check_kernels(dev) -> dict:
                               consolidate_case(3, 1000, 40, 40, 3),
                               consolidate_case(2, R, P, C, 12))
     return errs
+
+
+def histogram_case(dev, codes, nsym, label, plan=None) -> float:
+    """The histogram kernel against its plain version: counts exact.
+    ``plan``: one the wrapper would not pick, through launch_kernel."""
+    import torch
+    from repro_torch.kernels.histogram import (histogram, histogram_plain,
+                                               histogram_plan, launch_kernel)
+    got = histogram(codes, nsym) if plan is None else \
+        launch_kernel(codes, nsym, plan)
+    want = histogram_plain(codes, nsym)
+    sync(dev)
+    ok = bool(torch.equal(got, want))
+    k, c = codes.shape
+    plan = plan or histogram_plan(k, c, nsym)
+    print(f"histogram {label} K={k} C={c} nsym={nsym} (plan {tuple(plan)}): "
+          f"{'exact' if ok else 'DIFFERS'}")
+    if not ok:
+        raise AssertionError("histogram kernel differs from plain version")
+    return max_abs_diff([(got, want)])
+
+
+def quantize_zeros_case(dev, gen) -> float:
+    """Exact zeros of both signs in both orders: the kernel's side info and
+    codes bit-identical to the plain version on the CPU (held to jnp.min /
+    jnp.max by the CPU tests); -0.0 wins the min (fp16 0x8000)."""
+    import torch
+    from repro_torch.kernels.quantize import quantize_fused, quantize_plain
+    x = torch.randn((2, R, P), generator=gen)
+    x[:, :, 0] = 0.0
+    x[:, 5::2, 0] = -0.0                          # +0 first, then -0
+    x[:, :, 1] = -0.0
+    x[:, 3::4, 1] = 0.0                           # -0 first
+    x[:, :, 2] = 0.0                              # all +0
+    x[:, :, 3] = -0.0                             # all -0
+    sel = torch.tensor([0, 1, 2, 3] + list(range(100, 160)), dtype=torch.int32)
+    got = quantize_fused(x.to(dev), BITS, sel.to(dev))
+    want = quantize_plain(x, BITS, sel.long())
+    sync(dev)
+    mins = got[1].cpu().view(torch.int16).to(torch.int32) & 0xFFFF
+    ok = all(bits_equal(g.cpu(), w) for g, w in zip(got, want)) and \
+        bool((mins[:, :2] == 0x8000).all()) and \
+        bool((mins[:, 2] == 0).all()) and bool((mins[:, 3] == 0x8000).all())
+    print(f"quantize with signed zeros (+0 then -0, -0 then +0, all +0, all "
+          f"-0): kernel vs plain on the CPU "
+          f"{'bit-identical' if ok else 'DIFFERS'}; fp16 mins of those "
+          f"channels {[hex(int(v)) for v in mins[0, :4]]}")
+    if not ok:
+        raise AssertionError("quantize kernel orders the zeros unlike jnp")
+    return max_abs_diff(zip((g.cpu() for g in got), want))
 
 
 def quantize_nan_case(dev, gen) -> float:
@@ -564,6 +655,7 @@ def main_path(dev, cfg) -> dict:
                                    maxs.view(np.uint16))):
             raise AssertionError(f"request {i}: decoded codes differ")
     print("decoded codes and side info equal the encoder's: yes")
+    path_codes, hist_err = histogram_on_path_codes(dev, model, spec, imgs)
     cons_err = check_consolidate_on_path(dev, model, baf, spec.sel_idx,
                                          decoded)
     ref = plan_ref.restore(decoded)
@@ -614,7 +706,29 @@ def main_path(dev, cfg) -> dict:
                                atol=CPU_TOL)):
         raise AssertionError("card and CPU paths disagree")
     return dict(launches=launches, times=times, wire=wire, z=z_tilde,
-                consolidate_err=cons_err, decoded=decoded)
+                consolidate_err=cons_err, decoded=decoded,
+                path_codes=path_codes, histogram_err=hist_err)
+
+
+def histogram_on_path_codes(dev, model, spec, imgs):
+    """The quantize kernel's codes of request 0's z, as the plan hands them
+    to the histogram -> ((K, C) codes on the card, the histogram kernel's
+    error against its plain version on them). Printed beside: the mean
+    share of a channel's codes on its most frequent symbol, how peaked they
+    are (1/256 for uniform codes)."""
+    import torch
+    from repro_torch.kernels.quantize import quantize_fused
+    z = model.edge(imgs[:1].to(dev))[1].contiguous()
+    n, h, w, p = z.shape
+    sel = torch.as_tensor(np.asarray(spec.sel_idx, np.int32), device=dev)
+    codes = quantize_fused(z.view(n, h * w, p), BITS, sel)[0].view(h * w, C)
+    err = histogram_case(dev, codes, 1 << BITS, "u8 the path's own codes")
+    counts = codes.cpu().numpy()
+    top = np.mean([np.bincount(counts[:, c]).max() / counts.shape[0]
+                   for c in range(C)])
+    print(f"the path's codes: mean share of a channel's most frequent "
+          f"symbol {float(top)!r}")
+    return codes, err
 
 
 def cdf_path(dev, decoded) -> dict:
@@ -924,12 +1038,12 @@ def profile_top(dev, label: str, fn, top: int = 8) -> None:
         return time.perf_counter() - t0
     rows, wall = _device_rows(run, [ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA])
-    busy = sum(us for us, _ in rows)
+    busy = sum(r[0] for r in rows)
     rows.sort(reverse=True)
     print(f"{label}: device busy {busy / 1e3!r} ms of {wall * 1e3!r} ms wall "
           f"under the profiler (busy share {busy / 1e6 / wall!r}); top "
           f"kernels: " + "; ".join(f"{k[:60]} {us / 1e3!r} ms"
-                                   for us, k in rows[:top]))
+                                   for us, k, _ in rows[:top]))
 
 
 def lms_card_vs_cpu(dev) -> float:
@@ -983,7 +1097,14 @@ def lms_card_vs_cpu(dev) -> float:
 # Phase 5: kernel times
 # ---------------------------------------------------------------------------
 
-def time_kernels(dev, errs: dict, launches: dict) -> list:
+def timed(fn):
+    """(device ms per call from the profiler, ms per call between CUDA
+    events, device operations per call)."""
+    ms, ops = device_ms(fn)
+    return ms, event_ms(fn), ops
+
+
+def time_kernels(dev, errs: dict, launches: dict, path_codes) -> list:
     import torch
     from repro_torch.kernels.consolidate import (consolidate_fused,
                                                  consolidate_plain)
@@ -992,10 +1113,6 @@ def time_kernels(dev, errs: dict, launches: dict) -> list:
 
     gen = torch.Generator().manual_seed(1)
     rows = []
-
-    def timed(fn):
-        """(device ms from the profiler, ms per call between CUDA events)."""
-        return device_ms(fn), event_ms(fn)
 
     def row(name, src, replaces, kernel, plain, nbytes, library, note,
             flops=0.0, peak=F32_FLOPS):
@@ -1009,7 +1126,10 @@ def time_kernels(dev, errs: dict, launches: dict) -> list:
               f"{by_bytes!r} ms; {flops!r} flops at {peak:g}/s -> {by_ops!r} "
               f"ms); per call between CUDA events, launch included: kernel "
               f"{kernel[1]!r} ms, plain {plain[1]!r} ms, library "
-              f"{None if library is None else library[1]!r} ms")
+              f"{None if library is None else library[1]!r} ms; device "
+              f"operations per call: kernel {kernel[2]!r}, plain "
+              f"{plain[2]!r}, library "
+              f"{None if library is None else library[2]!r}")
         return dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches[name], max_abs_err=errs[name],
                     ms=kernel[0], plain_ms=plain[0], bound_ms=bound,
@@ -1024,17 +1144,21 @@ def time_kernels(dev, errs: dict, launches: dict) -> list:
         plain = timed(lambda: quantize_plain(x, BITS, sel64))
         # selected elements read once, codes and fp16 side info written once
         nbytes = b * R * C * 4 + C * 4 + b * R * C + 2 * b * C * 2
-        return ms, plain, nbytes
+        # 32-byte sectors of x that the gather touches
+        sectors = len(set((sel.cpu().numpy() * 4 // 32).tolist()))
+        return ms, plain, nbytes, b * R * sectors * 32
 
-    def histogram_times(k):
-        codes = torch.randint(0, 256, (k, C), generator=gen,
-                              dtype=torch.uint8).to(dev)
+    def histogram_times(codes):
         offs = torch.arange(C, device=dev) * 256
         ms = timed(lambda: histogram(codes, 256))
         plain = timed(lambda: histogram_plain(codes, 256))
         lib = timed(lambda: torch.bincount(
             (codes.long() + offs).view(-1), minlength=C * 256))
-        return ms, plain, lib, k * C + C * 256 * 4
+        return ms, plain, lib, codes.numel() + C * 256 * 4
+
+    def uniform(k):
+        return torch.randint(0, 256, (k, C), generator=gen,
+                             dtype=torch.uint8).to(dev)
 
     def consolidate_times(b):
         z = torch.randn((b, R, P), generator=gen).to(dev)
@@ -1051,19 +1175,25 @@ def time_kernels(dev, errs: dict, launches: dict) -> list:
 
     q1 = quantize_times(1)
     q8 = quantize_times(B)
-    h1 = histogram_times(R)
-    h8 = histogram_times(B * R)
+    h1 = histogram_times(uniform(R))
+    h8 = histogram_times(uniform(B * R))
+    hp = histogram_times(path_codes)
     c8 = consolidate_times(B)
     rows.append(row("quantize", "src/repro_torch/csrc/quantize.cu",
                     "src/repro/kernels/quantize.py:48", q1[0], q1[1], q1[2],
-                    None, f"main path B=1 R={R} P={P} C={C}"))
+                    None, f"main path B=1 R={R} P={P} C={C}; the gather "
+                    f"touches {q1[3]} bytes of 32-byte sectors"))
     row("quantize", "", "", q8[0], q8[1], q8[2], None,
-        f"slice B={B} R={R} P={P} C={C}")
+        f"slice B={B} R={R} P={P} C={C}; the gather touches {q8[3]} bytes "
+        f"of 32-byte sectors")
     rows.append(row("histogram", "src/repro_torch/csrc/histogram.cu",
                     "src/repro/kernels/histogram.py:61", h1[0], h1[1], h1[3],
-                    h1[2], f"main path K={R} C={C} nsym=256"))
+                    h1[2], f"main path K={R} C={C} nsym=256, uniform codes"))
     row("histogram", "", "", h8[0], h8[1], h8[3], h8[2],
-        f"slice K={B * R} C={C} nsym=256")
+        f"slice K={B * R} C={C} nsym=256, uniform codes")
+    row("histogram", "", "", hp[0], hp[1], hp[3], hp[2],
+        f"main path K={R} C={C} nsym=256, the quantize kernel's codes of "
+        f"the edge CNN's z")
     rows.append(row("consolidate", "src/repro_torch/csrc/consolidate.cu",
                     "src/repro/kernels/consolidate.py:37", c8[0], c8[1],
                     c8[2], None, f"main path B={B} R={R} P={P} C={C}"))
@@ -1081,9 +1211,6 @@ def time_lm_kernels(dev, row, gen) -> list:
     from repro_torch.kernels.histogram import cdf, cdf_plain
     from repro_torch.kernels.linear_scan import (_scratch_floats, linear_scan,
                                                  linear_scan_plain)
-
-    def timed(fn):
-        return device_ms(fn), event_ms(fn)
 
     out = []
     nsym = 1 << BITS
@@ -1187,6 +1314,7 @@ def main() -> int:
           f"{cfg.split_p}, Q={cfg.split_q}, C={C}, bits={BITS}, rans, fused")
     res = main_path(dev, cfg)
     errs["consolidate"] = max(errs["consolidate"], res["consolidate_err"])
+    errs["histogram"] = max(errs["histogram"], res["histogram_err"])
     for k, v in res["times"].items():
         print(f"stage {k}: {v * 1e3!r} ms per request")
     launches = dict(res["launches"])
@@ -1199,7 +1327,7 @@ def main() -> int:
     launches["linear_scan/ingest_block"] = rwkv["n_ingest"]
     lms_card_vs_cpu(dev)
     errs["linear_scan/ingest_block"] = errs["linear_scan"]
-    rows = time_kernels(dev, errs, launches)
+    rows = time_kernels(dev, errs, launches, res["path_codes"])
     print(f"total {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())

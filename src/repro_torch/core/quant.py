@@ -5,10 +5,12 @@ with one fp16 (min, max) pair per channel. These are the plain versions of
 the quantize kernel (``repro_torch/kernels/quantize.py``), and they match
 the JAX functions bit for bit: fp16 rounding is round-to-nearest-even in
 both, the max widens by one fp16 ulp towards +inf (done on the bit pattern,
-which works for float16 on every device), both saturate at +-65504, and
-the divide is an IEEE divide. Divisions by the level count divide by a
-0-dim tensor on the data's device, because PyTorch's CUDA division by a
-Python scalar multiplies by its reciprocal, which rounds differently.
+which works for float16 on every device), both saturate at +-65504, the
+min ranks -0.0 below +0.0 and the max +0.0 above -0.0 (as ``jnp.min`` and
+``jnp.max`` do), and the divide is an IEEE divide. Divisions by the level
+count divide by a 0-dim tensor on the data's device, because PyTorch's
+CUDA division by a Python scalar multiplies by its reciprocal, which
+rounds differently.
 """
 from __future__ import annotations
 
@@ -70,16 +72,25 @@ def compute_quant_params(x: torch.Tensor, bits: int, *,
     middle dims kept so the side info broadcasts against ``x``.
     """
     x = x.float()
-    if per_example:
-        dims = tuple(range(1, x.ndim - 1))
-        mn = torch.amin(x, dim=dims, keepdim=True) if dims else x
-        mx = torch.amax(x, dim=dims, keepdim=True) if dims else x
-    else:
-        dims = tuple(range(x.ndim - 1))
-        mn = torch.amin(x, dim=dims)
-        mx = torch.amax(x, dim=dims)
+    dims = tuple(range(1 if per_example else 0, x.ndim - 1))
+    mn, mx = signed_zero_min_max(x, dims, per_example) if dims else (x, x)
     mins, maxs = side_info(mn, mx)
     return QuantParams(mins=mins, maxs=maxs, bits=bits)
+
+
+def signed_zero_min_max(x: torch.Tensor, dims: tuple, keepdim: bool):
+    """``torch.amin``/``amax`` over ``dims`` with ``jnp.min``/``jnp.max``'s
+    order of the zeros: -0.0 below +0.0. ``torch.amin`` returns whichever
+    equal zero it meets first, and the fp16 min goes on the wire. NaN still
+    propagates (NaN == 0 is false)."""
+    mn = torch.amin(x, dim=dims, keepdim=keepdim)
+    mx = torch.amax(x, dim=dims, keepdim=keepdim)
+    zero, neg = x == 0, torch.signbit(x)
+    neg0 = (zero & neg).any(dim=dims, keepdim=keepdim)
+    pos0 = (zero & ~neg).any(dim=dims, keepdim=keepdim)
+    mn = torch.where((mn == 0) & neg0, -0.0, mn)
+    mx = torch.where((mx == 0) & pos0, 0.0, mx)
+    return mn, mx
 
 
 def quantize(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:

@@ -4,91 +4,316 @@
 // reached from the static rANS encoder through channel_histogram. The TPU
 // kernel compares an (nsym, BR, BC) block against a symbol iota and sums;
 // with nsym up to 4096 that is 4096 compares per code. Here each code costs
-// one shared-memory atomic.
+// one shared-memory atomic at most.
 //
 // Bound on the H100: memory bytes (one read of the codes, one write of the
-// counts); the atomics are in shared memory.
+// counts). At the path's shape (K=4096, C=64, 8 bits) that is 0.1 us, so
+// what a call costs is launches, latency and synchronisation.
 //
-// Design: grid (channel groups, row blocks). A block keeps a private
-// histogram of its cpb channels in shared memory (cpb * nsym int32, at
-// most 48 KB, so cpb falls from 32 to 3 as nsym grows to 4096), counts its
-// rows with shared atomics, then adds its nonzero bins to the global counts
-// with global atomics. Neighbouring threads read neighbouring channels of a
-// row, so loads coalesce. Values < 0 or >= nsym are counted nowhere (nsym is
-// the callers' padding sentinel). Counts are exact integers whatever the
-// order of the atomics.
+// Design: one launch and no memset. The grid is (cluster, channel groups);
+// a thread-block cluster of N blocks owns one group of `group` channels
+// (a power of two up to 8; the plan takes 4) and splits its K rows N ways.
+//   1. Each block zeroes a private histogram of its group in shared memory
+//      (group * nsym int32, through the opt-in dynamic shared memory) and
+//      counts its rows into it with one shared atomic per code. Measured on
+//      the H100 (tools/baf_kernel_times.py --variants), this beats
+//      aggregating equal codes of a warp first (__match_any_sync) and
+//      per-warp sub-histograms on uniform codes, on the path's own codes
+//      and on one symbol everywhere; kHotBins keeps those two variants for
+//      the tool.
+//   2. Block r sums bins [r * share, (r + 1) * share) of the group: every
+//      block stores those bins of its histogram into block r's shared
+//      memory with 16-byte st.async, counted on block r's mbarrier
+//      (cluster.cuh), and block r adds the N copies and stores the counts
+//      with plain 16-byte stores: every count is written exactly once. No
+//      block reads another's shared memory, so none waits for the others
+//      before it exits. The receive buffer doubles the shared memory, so
+//      nsym = 4096 takes groups of 4 channels (128 KB a block).
+// Loads: where C is a multiple of the group and the base is aligned, a row
+// of the group is read with 4-, 8- or 16-byte vector loads (one 4-byte load
+// per row for 4 u8 channels); otherwise one code per thread, lanes over
+// channels.
+// No divide per code. Values < 0 or >= nsym are counted nowhere (nsym is
+// the callers' padding sentinel). Counts are exact whatever the order.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cluster.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSmemInts = 48 * 1024 / 4;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGroup = 8;
+constexpr int kMaxCluster = 16;
+constexpr int kSmemMax = 231424;     // dynamic shared memory a block may opt
+                                     // into: 227 KB less 1 KB of static
+constexpr int kMaxDevices = 64;
+// How equal codes of one warp reach the shared histogram:
+// 0 one shared atomic per code; 1 aggregated per warp with __match_any_sync;
+// 2 one sub-histogram per warp where they fit, summed before the cluster
+// reduction.
+constexpr int kHotBins = 0;
 
-template <typename T>
-__global__ void hist_kernel(const T* __restrict__ codes, int* __restrict__ counts,
-                            int K, int C, int nsym, int cpb,
-                            int rows_per_block) {
-  extern __shared__ int sh[];
-  const int c0 = blockIdx.x * cpb;
-  const int nc = min(cpb, C - c0);
-  const int k0 = blockIdx.y * rows_per_block;
-  const int k1 = min(K, k0 + rows_per_block);
-  for (int i = threadIdx.x; i < nc * nsym; i += blockDim.x) sh[i] = 0;
-  __syncthreads();
-  const long long total = (long long)max(k1 - k0, 0) * nc;
-  for (long long i = threadIdx.x; i < total; i += blockDim.x) {
-    const int k = k0 + (int)(i / nc);
-    const int j = (int)(i % nc);
-    const int v = (int)codes[(size_t)k * C + c0 + j];
-    if (v >= 0 && v < nsym) atomicAdd(&sh[j * nsym + v], 1);
-  }
-  __syncthreads();
-  int* out = counts + (size_t)c0 * nsym;
-  for (int i = threadIdx.x; i < nc * nsym; i += blockDim.x) {
-    const int v = sh[i];
-    if (v) atomicAdd(&out[i], v);
+__device__ __forceinline__ void add(int* hist, int bin, int lane) {
+  if constexpr (kHotBins == 1) {
+    const unsigned peers = __match_any_sync(0xffffffffu, bin);
+    if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
+  } else {
+    if (bin >= 0) atomicAdd(&hist[bin], 1);
   }
 }
 
+template <int VB> struct Vec;
+template <> struct Vec<4> { using T = uint32_t; };
+template <> struct Vec<8> { using T = uint2; };
+template <> struct Vec<16> { using T = uint4; };
+
+__device__ __forceinline__ uint32_t word(uint32_t v, int) { return v; }
+__device__ __forceinline__ uint32_t word(uint2 v, int i) { return i ? v.y : v.x; }
+__device__ __forceinline__ uint32_t word(uint4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Element e of a little-endian vector of codes of type T, as unsigned (a
+// negative int32 becomes large and fails the < nsym test).
+template <typename T, typename V>
+__device__ __forceinline__ uint32_t element(V v, int e) {
+  constexpr int per_word = 4 / sizeof(T);
+  const uint32_t w = word(v, e / per_word);
+  if constexpr (sizeof(T) == 4) {
+    return w;
+  } else {
+    constexpr uint32_t mask = (1u << (8 * sizeof(T))) - 1;
+    return (w >> (8 * sizeof(T) * (e % per_word))) & mask;
+  }
+}
+
+// VB = 0: one code per thread; VB = 4, 8, 16: vector loads of VB bytes.
+// Shared memory: `copies` histograms of the group, then the bins this block
+// sums, as every block of the cluster stores them (nblk x share units of
+// 1 << unit_log2 ints).
+template <typename T, int VB>
+__global__ void __launch_bounds__(kThreads)
+hist_kernel(const T* __restrict__ codes, int* __restrict__ counts, int K, int C,
+            int nsym, int group_log2, int vec_log2, int rows_per_block,
+            int copies, int unit_log2, int share) {
+  extern __shared__ int4 smem4[];
+  int* sh = reinterpret_cast<int*>(smem4);
+  __shared__ uint64_t s_bar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nblk = (int)cluster.num_blocks();
+  const int group = 1 << group_log2;
+  const int c0 = blockIdx.y * group;
+  const int nc = min(group, C - c0);
+  const int stride = group * nsym;           // ints of one sub-histogram
+  const int lane = threadIdx.x & 31;
+  const int nunits = (nc * nsym) >> unit_log2;
+  const int mine = max(0, min(share, nunits - rank * share));
+  if (threadIdx.x == 0)
+    dsm::expect_bytes(&s_bar, (uint32_t)(nblk * mine) << (unit_log2 + 2));
+  dsm::arrive_relaxed();
+
+  const int n = stride * copies;
+  for (int i = threadIdx.x; i < (n >> 2); i += kThreads) smem4[i] = make_int4(0, 0, 0, 0);
+  for (int i = (n & ~3) + threadIdx.x; i < n; i += kThreads) sh[i] = 0;
+  __syncthreads();
+
+  int* hist = sh;
+  if constexpr (kHotBins == 2) hist += ((threadIdx.x >> 5) % copies) * stride;
+  const int k0 = rank * rows_per_block;
+  const int k1 = min(K, k0 + rows_per_block);
+  if constexpr (VB > 0) {
+    // vectors of a row: 1 << vec_log2; lanes over (row, vector)
+    using V = typename Vec<VB>::T;
+    constexpr int E = VB / sizeof(T);
+    const int v = threadIdx.x & ((1 << vec_log2) - 1);
+    const int row_off = threadIdx.x >> vec_log2;
+    const int step = kThreads >> vec_log2;
+    for (int base = k0; base < k1; base += step) {
+      const int r = base + row_off;
+      const bool ok = r < k1;
+      V w{};
+      if (ok) w = reinterpret_cast<const V*>(codes + (size_t)r * C + c0)[v];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const uint32_t code = element<T>(w, e);
+        const bool in = ok && code < (uint32_t)nsym;
+        add(hist, in ? (v * E + e) * nsym + (int)code : -1, lane);
+      }
+    }
+  } else {
+    // lanes over the group's channels, then rows
+    const int j = threadIdx.x & (group - 1);
+    const int row_off = threadIdx.x >> group_log2;
+    const int step = kThreads >> group_log2;
+    for (int base = k0; base < k1; base += step) {
+      const int r = base + row_off;
+      int bin = -1;
+      if (r < k1 && j < nc) {
+        const uint32_t code = (uint32_t)(int)codes[(size_t)r * C + c0 + j];
+        if (code < (uint32_t)nsym) bin = j * nsym + (int)code;
+      }
+      add(hist, bin, lane);
+    }
+  }
+  if constexpr (kHotBins == 2) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < stride; i += kThreads) {
+      int s = sh[i];
+      for (int w = 1; w < copies; ++w) s += sh[w * stride + i];
+      sh[i] = s;
+    }
+  }
+  __syncthreads();
+
+  // 2. each bin to the block that sums it (every block has started: the
+  // cluster barrier), then this block's share summed over the cluster
+  dsm::wait();
+  int* recv = sh + stride * copies;
+  const uint32_t bar = dsm::smem(&s_bar);
+  for (int u = threadIdx.x; u < nunits; u += kThreads) {
+    const int o = u / share;
+    const uint32_t to =
+        dsm::remote(dsm::smem(recv + ((rank * share + u - o * share) << unit_log2)), o);
+    if (unit_log2)
+      dsm::st_async(to, smem4[u], dsm::remote(bar, o));
+    else
+      dsm::st_async(to, (uint32_t)sh[u], dsm::remote(bar, o));
+  }
+  dsm::wait_bytes(&s_bar);
+  int* out = counts + (size_t)c0 * nsym + ((rank * share) << unit_log2);
+  if (unit_log2) {
+    const int4* r4 = reinterpret_cast<const int4*>(recv);
+    for (int u = threadIdx.x; u < mine; u += kThreads) {
+      int4 acc = r4[u];
+      for (int s = 1; s < nblk; ++s) {
+        const int4 v = r4[s * share + u];
+        acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+      }
+      reinterpret_cast<int4*>(out)[u] = acc;
+    }
+  } else {
+    for (int u = threadIdx.x; u < mine; u += kThreads) {
+      int acc = recv[u];
+      for (int s = 1; s < nblk; ++s) acc += recv[s * share + u];
+      out[u] = acc;
+    }
+  }
+}
+
+int log2_exact(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return (1 << l) == v ? l : -1;
+}
+
+template <typename T, int VB>
+int launch_vec(const T* codes, int* counts, int K, int C, int nsym,
+               int group_log2, int cluster, int groups, int rows_per_block,
+               int device, cudaStream_t s) {
+  auto kern = hist_kernel<T, VB>;
+  static bool ready[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    ready[device] = true;
+  }
+  // one histogram of the group, and the bins this block sums as the
+  // cluster's blocks store them
+  const size_t one = (size_t)(nsym << group_log2) * sizeof(int);
+  const int unit_log2 = (nsym & 3) == 0 ? 2 : 0;
+  const int units = (nsym << group_log2) >> unit_log2;
+  const int share = (units + cluster - 1) / cluster;
+  const size_t recv = (size_t)cluster * share * (sizeof(int) << unit_log2);
+  if (one + recv > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  int copies = 1;
+  if (kHotBins == 2) {
+    const size_t fit = (kSmemMax - recv) / one;
+    copies = fit < (size_t)kWarps ? (int)fit : kWarps;
+  }
+  const int vec_log2 =
+      VB ? group_log2 + log2_exact((int)sizeof(T)) - log2_exact(VB) : 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, groups, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = one * copies + recv;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, codes, counts, K, C, nsym,
+                                 group_log2, vec_log2, rows_per_block, copies,
+                                 unit_log2, share);
+}
+
 template <typename T>
-int launch(const void* codes, void* counts, int K, int C, int nsym, int device,
-           void* stream) {
+int launch(const void* codes, void* counts, int K, int C, int nsym, int group,
+           int cluster, int rows_per_block, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const int group_log2 = log2_exact(group);
+  if (K < 0 || C <= 0 || nsym <= 0 || group_log2 < 0 || group > kMaxGroup ||
+      cluster < 1 || cluster > kMaxCluster || rows_per_block < 0 ||
+      (long long)rows_per_block * cluster < K)
+    return (int)cudaErrorInvalidValue;
+  const int groups = (C + group - 1) / group;
   cudaStream_t s = (cudaStream_t)stream;
-  err = cudaMemsetAsync(counts, 0, (size_t)C * nsym * sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  if (K <= 0 || C <= 0) return 0;
-  if (nsym > kSmemInts) return (int)cudaErrorInvalidValue;
-  const int cpb = max(1, min(min(C, 32), kSmemInts / nsym));
-  const int col_blocks = (C + cpb - 1) / cpb;
-  // at least 64 rows a block, and about two blocks per SM in all
-  int ksplit = (264 + col_blocks - 1) / col_blocks;
-  ksplit = max(1, min(ksplit, (K + 63) / 64));
-  const int rpb = (K + ksplit - 1) / ksplit;
-  ksplit = (K + rpb - 1) / rpb;
-  const dim3 grid(col_blocks, ksplit);
-  const size_t smem = (size_t)cpb * nsym * sizeof(int);
-  hist_kernel<T><<<grid, kThreads, smem, s>>>((const T*)codes, (int*)counts, K,
-                                              C, nsym, cpb, rpb);
-  return (int)cudaGetLastError();
+  const T* p = (const T*)codes;
+  int* out = (int*)counts;
+  // bytes of one row of the group; vector loads when every group is whole
+  // and every row of it starts on a multiple of the vector
+  const int seg = group * (int)sizeof(T);
+  const int vb = seg >= 16 ? 16 : seg;
+  if (C % group == 0 && vb >= 4 && (uintptr_t)codes % vb == 0) {
+    if (vb == 16)
+      return launch_vec<T, 16>(p, out, K, C, nsym, group_log2, cluster, groups,
+                               rows_per_block, device, s);
+    if (vb == 8)
+      return launch_vec<T, 8>(p, out, K, C, nsym, group_log2, cluster, groups,
+                              rows_per_block, device, s);
+    return launch_vec<T, 4>(p, out, K, C, nsym, group_log2, cluster, groups,
+                            rows_per_block, device, s);
+  }
+  return launch_vec<T, 0>(p, out, K, C, nsym, group_log2, cluster, groups,
+                          rows_per_block, device, s);
 }
 
 }  // namespace
 
-// codes (K, C) row-major; counts (C, nsym) int32, zeroed here.
+// codes (K, C) row-major; counts (C, nsym) int32, every count written here.
+// The plan (group, cluster, rows_per_block) comes from
+// repro_torch/kernels/histogram.py::histogram_plan.
 extern "C" int baf_histogram_u8(const void* codes, void* counts, int K, int C,
-                                int nsym, int device, void* stream) {
-  return launch<uint8_t>(codes, counts, K, C, nsym, device, stream);
+                                int nsym, int group, int cluster,
+                                int rows_per_block, int device, void* stream) {
+  return launch<uint8_t>(codes, counts, K, C, nsym, group, cluster,
+                         rows_per_block, device, stream);
 }
 
 extern "C" int baf_histogram_u16(const void* codes, void* counts, int K, int C,
-                                 int nsym, int device, void* stream) {
-  return launch<uint16_t>(codes, counts, K, C, nsym, device, stream);
+                                 int nsym, int group, int cluster,
+                                 int rows_per_block, int device, void* stream) {
+  return launch<uint16_t>(codes, counts, K, C, nsym, group, cluster,
+                          rows_per_block, device, stream);
 }
 
 extern "C" int baf_histogram_i32(const void* codes, void* counts, int K, int C,
-                                 int nsym, int device, void* stream) {
-  return launch<int32_t>(codes, counts, K, C, nsym, device, stream);
+                                 int nsym, int group, int cluster,
+                                 int rows_per_block, int device, void* stream) {
+  return launch<int32_t>(codes, counts, K, C, nsym, group, cluster,
+                         rows_per_block, device, stream);
 }

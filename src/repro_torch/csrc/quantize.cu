@@ -9,89 +9,69 @@
 //
 // Bound on the H100: memory bytes. Per element it reads 4 bytes, writes 1
 // and does a handful of flops, far below the card's ~20 flops/byte ridge.
+// The gather reads whole 32-byte sectors: 64 channels scattered over a
+// 256-float row touch most of its 32 sectors.
 //
-// Design: three launches on the caller's stream.
-//   1. minmax_partial: grid (channel groups of 32, row blocks, examples),
-//      block (32 channels, 8 row slots). Each warp reads 32 selected
-//      channels of one row; each block reduces its rows through shared
-//      memory and writes one partial min/max per channel.
-//   2. finalize: grid (channel groups, examples), block (32, 8); reduce the
-//      partials through shared memory, round to fp16, saturate the min at
-//      -65504, widen the max by one fp16 ulp on the bit pattern and cap it
-//      at 65504 (exactly repro/core/quant.py::compute_quant_params).
-//   3. quantize_codes: same grid as (1); re-reads the selected channels
-//      (mostly from L2) and writes the codes
-//      clip(rint((x - m) / max(M - m, 1e-12) * levels), 0, levels).
-// Rounding: built with -fmad=false and IEEE __fdiv_rn/__fsub_rn/__fmul_rn,
-// rintf is round-half-even, so codes and side info are bit-identical to the
-// plain torch version and to the JAX reference.
-// NaN: the min/max reductions propagate NaN, as jnp.min/jnp.max and
-// torch.amin/amax do (fminf/fmaxf would drop it), so an (example, channel)
-// holding a NaN gets NaN fp16 side info, and its codes are 0.
-// Codes are uint8 for 1..8 bits and uint16 for 9..16, as core/quant.py.
+// Design: one launch, no scratch. A thread-block cluster of N blocks owns
+// one (example, group of `group` channels) and splits its R rows N ways.
+//   1. The group's channels are taken in the order of their index in x
+//      (each block ranks sel in shared memory, up to kSortMax channels), so
+//      the 8 channels of a group lie close together in a row and one
+//      warp's loads (8 channels x 4 rows) touch few sectors.
+//   2. Each block loads its rows of its channels once into registers
+//      (kHold values a thread) and reduces them: shuffles, then shared
+//      memory across warps.
+//   3. Each block stores its partial min/max into every block of the
+//      cluster (distributed shared memory, st.async counted on the
+//      receiver's mbarrier: cluster.cuh), waits for the N partials to
+//      arrive in its own shared memory, reduces them and derives the same
+//      fp16 side info as every other block; rank 0 stores it. No cluster
+//      barrier stands between a block's reduction and its codes.
+//   4. Each block quantizes the values it holds and writes the codes. A
+//      block whose rows do not fit in kHold values a thread re-reads them
+//      (mostly from L2) in this pass instead.
+// The chain a block waits on: sel, then x (one round of loads), the
+// block's reduction, the other blocks' partials, the codes.
+// Side info (exactly repro/core/quant.py::compute_quant_params): the min
+// rounds to fp16 and saturates at -65504; the max rounds to fp16, widens by
+// one ulp on the bit pattern and is capped at 65504. The min ranks -0.0
+// below +0.0 and the max +0.0 above -0.0, as jnp.min/jnp.max do (the bit
+// patterns of two equal operands are OR-ed for the min, AND-ed for the
+// max), and both propagate NaN: an (example, channel) holding a NaN gets
+// NaN side info and zero codes.
+// Codes: clip(rint((x - m) / max(M - m, 1e-12) * levels), 0, levels), with
+// -fmad=false and IEEE __fdiv_rn/__fsub_rn/__fmul_rn, rintf half-to-even,
+// so they are bit-identical to the plain torch version and to the JAX
+// reference. uint8 for 1..8 bits, uint16 for 9..16, as core/quant.py.
+#include <cooperative_groups.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kCh = 32;    // channels per block (threadIdx.x)
-constexpr int kRows = 8;   // row slots per block (threadIdx.y)
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHold = 16;          // values a thread keeps in registers
+constexpr int kMaxGroup = 8;
+constexpr int kMaxCluster = 16;
+constexpr int kSortMax = 1024;     // channels ranked by index in x
+constexpr int kMaxDevices = 64;
 
-// NaN-propagating min and max (fminf/fmaxf return the other operand).
+// NaN-propagating min and max with jnp's order of the zeros.
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? a + b : fminf(a, b);
+  if (a != a || b != b) return a + b;
+  if (a == b) return __int_as_float(__float_as_int(a) | __float_as_int(b));
+  return a < b ? a : b;
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? a + b : fmaxf(a, b);
-}
-
-// Selected channel of group lane c, or -1 when it lies outside [0, P): the
-// callers validate sel_idx on the host; this only keeps a bad index from
-// reading outside x.
-__device__ __forceinline__ int channel_of(const int* sel, int c, int P) {
-  const int p = sel ? sel[c] : c;
-  return (p >= 0 && p < P) ? p : -1;
-}
-
-__global__ void minmax_partial(const float* __restrict__ x,
-                               const int* __restrict__ sel,
-                               float* __restrict__ pmin,
-                               float* __restrict__ pmax, int R, int P, int C,
-                               int rows_per_block) {
-  const int c = blockIdx.x * kCh + threadIdx.x;
-  const int rb = blockIdx.y, nrb = gridDim.y, b = blockIdx.z;
-  const int r0 = rb * rows_per_block;
-  const int r1 = min(R, r0 + rows_per_block);
-  float mn = INFINITY, mx = -INFINITY;
-  const int p = c < C ? channel_of(sel, c, P) : -1;
-  if (p >= 0) {
-    const float* xb = x + (size_t)b * R * P + p;
-    for (int r = r0 + threadIdx.y; r < r1; r += kRows) {
-      const float v = xb[(size_t)r * P];
-      mn = nan_min(mn, v);
-      mx = nan_max(mx, v);
-    }
-  }
-  __shared__ float smn[kRows][kCh + 1];
-  __shared__ float smx[kRows][kCh + 1];
-  smn[threadIdx.y][threadIdx.x] = mn;
-  smx[threadIdx.y][threadIdx.x] = mx;
-  __syncthreads();
-  for (int s = kRows / 2; s > 0; s >>= 1) {
-    if (threadIdx.y < s) {
-      smn[threadIdx.y][threadIdx.x] =
-          nan_min(smn[threadIdx.y][threadIdx.x], smn[threadIdx.y + s][threadIdx.x]);
-      smx[threadIdx.y][threadIdx.x] =
-          nan_max(smx[threadIdx.y][threadIdx.x], smx[threadIdx.y + s][threadIdx.x]);
-    }
-    __syncthreads();
-  }
-  if (threadIdx.y == 0 && c < C) {
-    const size_t o = ((size_t)b * nrb + rb) * C + c;
-    pmin[o] = smn[0][threadIdx.x];
-    pmax[o] = smx[0][threadIdx.x];
-  }
+  if (a != a || b != b) return a + b;
+  if (a == b) return __int_as_float(__float_as_int(a) & __float_as_int(b));
+  return a > b ? a : b;
 }
 
 __device__ __forceinline__ unsigned short f16_next_up(unsigned short h) {
@@ -101,102 +81,244 @@ __device__ __forceinline__ unsigned short f16_next_up(unsigned short h) {
   return (h & 0x8000) ? h - 1 : h + 1;    // towards +inf
 }
 
-__global__ void finalize(const float* __restrict__ pmin,
-                         const float* __restrict__ pmax,
-                         __half* __restrict__ mins, __half* __restrict__ maxs,
-                         int C, int nrb) {
-  const int c = blockIdx.x * kCh + threadIdx.x;
-  const int b = blockIdx.y;
-  float mn = INFINITY, mx = -INFINITY;
-  if (c < C) {
-    for (int rb = threadIdx.y; rb < nrb; rb += kRows) {
-      const size_t o = ((size_t)b * nrb + rb) * C + c;
-      mn = nan_min(mn, pmin[o]);
-      mx = nan_max(mx, pmax[o]);
-    }
-  }
-  __shared__ float smn[kRows][kCh + 1];
-  __shared__ float smx[kRows][kCh + 1];
-  smn[threadIdx.y][threadIdx.x] = mn;
-  smx[threadIdx.y][threadIdx.x] = mx;
-  __syncthreads();
-  if (threadIdx.y != 0 || c >= C) return;
-  for (int y = 1; y < kRows; ++y) {
-    mn = nan_min(mn, smn[y][threadIdx.x]);
-    mx = nan_max(mx, smx[y][threadIdx.x]);
-  }
-  __half hmn = __float2half_rn(mn);
-  if (__half2float(hmn) < -65504.0f) hmn = __float2half_rn(-65504.0f);
-  __half hmx = __ushort_as_half(f16_next_up(__half_as_ushort(__float2half_rn(mx))));
-  if (__half2float(hmx) > 65504.0f) hmx = __float2half_rn(65504.0f);
-  mins[b * C + c] = hmn;
-  maxs[b * C + c] = hmx;
+template <typename CodeT>
+__device__ __forceinline__ CodeT code_of(float v, float m, float rng, float lv) {
+  const float s = __fmul_rn(__fdiv_rn(__fsub_rn(v, m), rng), lv);
+  return (CodeT)fminf(fmaxf(rintf(s), 0.0f), lv);
 }
 
-template <typename CodeT>
-__global__ void quantize_codes(const float* __restrict__ x,
-                               const int* __restrict__ sel,
-                               const __half* __restrict__ mins,
-                               const __half* __restrict__ maxs,
-                               CodeT* __restrict__ codes, int R, int P,
-                               int C, int levels, int rows_per_block) {
-  const int c = blockIdx.x * kCh + threadIdx.x;
+// kHeld: every block's rows fit in kHold values a thread (one read of x).
+template <typename CodeT, bool kHeld>
+__global__ void __launch_bounds__(kThreads)
+quantize_kernel(const float* __restrict__ x, const int* __restrict__ sel,
+                CodeT* __restrict__ codes, __half* __restrict__ mins,
+                __half* __restrict__ maxs, int R, int P, int C, int levels,
+                int group_log2, int rows_per_block) {
+  __shared__ int s_sel[kSortMax];
+  __shared__ int s_member[kMaxGroup];         // channel c of each slot or -1
+  __shared__ float s_wmn[kWarps][kMaxGroup], s_wmx[kWarps][kMaxGroup];
+  __shared__ float s_mn[kMaxGroup], s_mx[kMaxGroup];
+  // every block's partial min (slots 0..group) and max (group..2 group),
+  // stored here by that block; s_bar counts their bytes
+  __shared__ float s_all[kMaxCluster][2 * kMaxGroup];
+  __shared__ uint64_t s_bar;
+  __shared__ float s_m[kMaxGroup], s_rng[kMaxGroup];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nblk = (int)cluster.num_blocks();
+  const int group = 1 << group_log2;
+  if (threadIdx.x == 0) dsm::expect_bytes(&s_bar, nblk * 2 * group * 4);
+  dsm::arrive_relaxed();
+  const int first = blockIdx.y * group;       // rank of the group's first
   const int b = blockIdx.z;
-  const int p = c < C ? channel_of(sel, c, P) : -1;
-  if (p < 0) return;
-  const float m = __half2float(mins[b * C + c]);
-  const float rng = fmaxf(__fsub_rn(__half2float(maxs[b * C + c]), m), 1e-12f);
-  const float lv = (float)levels;
-  const float* xb = x + (size_t)b * R * P + p;
-  CodeT* cb = codes + (size_t)b * R * C + c;
-  const int r0 = blockIdx.y * rows_per_block;
-  const int r1 = min(R, r0 + rows_per_block);
-  for (int r = r0 + threadIdx.y; r < r1; r += kRows) {
-    const float s = __fmul_rn(__fdiv_rn(__fsub_rn(xb[(size_t)r * P], m), rng), lv);
-    cb[(size_t)r * C] = (CodeT)fminf(fmaxf(rintf(s), 0.0f), lv);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+
+  // 1. the group's channels: ranks [first, first + group) of sel by value
+  const bool ranked = sel != nullptr && C <= kSortMax;
+  if (!ranked) {
+    if (t < group) s_member[t] = first + t < C ? first + t : -1;
+  } else {
+    for (int i = t; i < C; i += kThreads) s_sel[i] = sel[i];
+    if (t < group) s_member[t] = -1;
+    __syncthreads();
+    for (int c = t; c < C; c += kThreads) {
+      const int pc = s_sel[c];
+      int below = 0;
+      for (int j = 0; j < C; ++j) {
+        const int pj = s_sel[j];
+        below += (pj < pc) | ((pj == pc) & (j < c));
+      }
+      if (below >= first && below < first + group) s_member[below - first] = c;
+    }
   }
+  __syncthreads();
+
+  // lanes over the group's slots, then rows
+  const int slot = t & (group - 1);
+  const int row_off = t >> group_log2;
+  const int step = kThreads >> group_log2;
+  const int c = s_member[slot];
+  int p = c < 0 ? -1 : (ranked ? s_sel[c] : (sel ? sel[c] : c));
+  if (p >= P) p = -1;                          // callers validate sel
+  const float* xb = x + (size_t)b * R * P + (p < 0 ? 0 : p);
+  const int r0 = rank * rows_per_block;
+  const int r1 = min(R, r0 + rows_per_block);
+
+  // 2. this block's rows: load, reduce
+  float mn = INFINITY, mx = -INFINITY;
+  float v[kHeld ? kHold : 1];
+  if constexpr (kHeld) {
+#pragma unroll
+    for (int i = 0; i < kHold; ++i) {
+      const int r = r0 + row_off + i * step;
+      v[i] = (p >= 0 && r < r1) ? xb[(size_t)r * P] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kHold; ++i)
+      if (p >= 0 && r0 + row_off + i * step < r1) {
+        mn = nan_min(mn, v[i]);
+        mx = nan_max(mx, v[i]);
+      }
+  } else if (p >= 0) {
+    for (int r = r0 + row_off; r < r1; r += step) {
+      const float w = xb[(size_t)r * P];
+      mn = nan_min(mn, w);
+      mx = nan_max(mx, w);
+    }
+  }
+  for (int off = group; off < 32; off <<= 1) {
+    mn = nan_min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    mx = nan_max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  if (lane < group) {
+    s_wmn[warp][lane] = mn;
+    s_wmx[warp][lane] = mx;
+  }
+  __syncthreads();
+  if (t < group) {
+    float a = s_wmn[0][t], z = s_wmx[0][t];
+    for (int w = 1; w < kWarps; ++w) {
+      a = nan_min(a, s_wmn[w][t]);
+      z = nan_max(z, s_wmx[w][t]);
+    }
+    s_mn[t] = a;
+    s_mx[t] = z;
+  }
+  __syncthreads();
+
+  // 3. this block's partials into every block of the cluster (each has
+  // started: the cluster barrier), then the cluster's min/max of each slot
+  // from this block's own shared memory -> fp16 side info, the same in
+  // every block
+  dsm::wait();
+  for (int i = t; i < nblk * 2 * group; i += kThreads) {
+    const int dst = i >> (group_log2 + 1), k = i & (2 * group - 1);
+    const float val = k < group ? s_mn[k] : s_mx[k - group];
+    dsm::st_async(dsm::remote(dsm::smem(&s_all[rank][k]), dst),
+                  __float_as_uint(val), dsm::remote(dsm::smem(&s_bar), dst));
+  }
+  if (t < group) {
+    dsm::wait_bytes(&s_bar);
+    float a = INFINITY, z = -INFINITY;
+    for (int s = 0; s < nblk; ++s) {
+      a = nan_min(a, s_all[s][t]);
+      z = nan_max(z, s_all[s][group + t]);
+    }
+    __half hmn = __float2half_rn(a);
+    if (__half2float(hmn) < -65504.0f) hmn = __float2half_rn(-65504.0f);
+    __half hmx = __ushort_as_half(f16_next_up(__half_as_ushort(__float2half_rn(z))));
+    if (__half2float(hmx) > 65504.0f) hmx = __float2half_rn(65504.0f);
+    const float m = __half2float(hmn);
+    s_m[t] = m;
+    s_rng[t] = fmaxf(__fsub_rn(__half2float(hmx), m), 1e-12f);
+    const int ct = s_member[t];
+    if (rank == 0 && ct >= 0) {
+      mins[(size_t)b * C + ct] = hmn;
+      maxs[(size_t)b * C + ct] = hmx;
+    }
+  }
+  __syncthreads();
+
+  // 4. codes of the values this block holds (or re-reads)
+  if (p >= 0) {
+    const float m = s_m[slot], rng = s_rng[slot], lv = (float)levels;
+    CodeT* cb = codes + (size_t)b * R * C + c;
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int i = 0; i < kHold; ++i) {
+        const int r = r0 + row_off + i * step;
+        if (r < r1) cb[(size_t)r * C] = code_of<CodeT>(v[i], m, rng, lv);
+      }
+    } else {
+      for (int r = r0 + row_off; r < r1; r += step)
+        cb[(size_t)r * C] = code_of<CodeT>(xb[(size_t)r * P], m, rng, lv);
+    }
+  }
+}
+
+int log2_exact(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return (1 << l) == v ? l : -1;
+}
+
+template <typename CodeT, bool kHeld>
+int launch_held(const float* x, const int* sel, CodeT* codes, __half* mins,
+                __half* maxs, int B, int R, int P, int C, int levels,
+                int group_log2, int cluster, int rows_per_block, int device,
+                cudaStream_t s) {
+  auto kern = quantize_kernel<CodeT, kHeld>;
+  const int groups = (C + (1 << group_log2) - 1) >> group_log2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, groups, B);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static bool ready[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    ready[device] = true;
+  }
+  return (int)cudaLaunchKernelEx(&cfg, kern, x, sel, codes, mins, maxs, R, P,
+                                 C, levels, group_log2, rows_per_block);
 }
 
 template <typename CodeT>
 int launch(const void* x, const void* sel, void* codes, void* mins,
-           void* maxs, void* partials, int B, int R, int P, int C, int levels,
-           int nrb, int device, void* stream) {
+           void* maxs, int B, int R, int P, int C, int levels, int group,
+           int cluster, int rows_per_block, int held, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const int group_log2 = log2_exact(group);
+  if (B <= 0 || R <= 0 || C <= 0 || P <= 0 || group_log2 < 0 ||
+      group > kMaxGroup || cluster < 1 || cluster > kMaxCluster ||
+      (long long)rows_per_block * cluster < R ||
+      (held && (long long)rows_per_block * group > (long long)kHold * kThreads))
+    return (int)cudaErrorInvalidValue;
+  const float* xf = (const float*)x;
+  const int* si = (const int*)sel;
   cudaStream_t s = (cudaStream_t)stream;
-  const int rpb = (R + nrb - 1) / nrb;
-  float* pmin = (float*)partials;
-  float* pmax = pmin + (size_t)B * nrb * C;
-  const dim3 block(kCh, kRows);
-  const dim3 grid((C + kCh - 1) / kCh, nrb, B);
-  minmax_partial<<<grid, block, 0, s>>>((const float*)x, (const int*)sel,
-                                        pmin, pmax, R, P, C, rpb);
-  finalize<<<dim3(grid.x, B), block, 0, s>>>(pmin, pmax, (__half*)mins,
-                                               (__half*)maxs, C, nrb);
-  quantize_codes<CodeT><<<grid, block, 0, s>>>(
-      (const float*)x, (const int*)sel, (const __half*)mins,
-      (const __half*)maxs, (CodeT*)codes, R, P, C, levels, rpb);
-  return (int)cudaGetLastError();
+  if (held)
+    return launch_held<CodeT, true>(xf, si, (CodeT*)codes, (__half*)mins,
+                                    (__half*)maxs, B, R, P, C, levels,
+                                    group_log2, cluster, rows_per_block,
+                                    device, s);
+  return launch_held<CodeT, false>(xf, si, (CodeT*)codes, (__half*)mins,
+                                   (__half*)maxs, B, R, P, C, levels,
+                                   group_log2, cluster, rows_per_block, device,
+                                   s);
 }
 
 }  // namespace
 
 // x (B, R, P) f32; sel (C,) int32 or null (then P == C); codes (B, R, C)
-// uint8 (1..8 bits) or uint16 (9..16 bits); mins/maxs (B, C) f16;
-// partials 2 * B * nrb * C f32 scratch.
+// uint8 (1..8 bits) or uint16 (9..16 bits); mins/maxs (B, C) f16. The plan
+// (group, cluster, rows_per_block, held) comes from
+// repro_torch/kernels/quantize.py::quantize_plan.
 extern "C" int baf_quantize_f32(const void* x, const void* sel, void* codes,
-                                void* mins, void* maxs, void* partials, int B,
-                                int R, int P, int C, int levels, int nrb,
-                                int device, void* stream) {
-  return launch<uint8_t>(x, sel, codes, mins, maxs, partials, B, R, P, C,
-                         levels, nrb, device, stream);
+                                void* mins, void* maxs, int B, int R, int P,
+                                int C, int levels, int group, int cluster,
+                                int rows_per_block, int held, int device,
+                                void* stream) {
+  return launch<uint8_t>(x, sel, codes, mins, maxs, B, R, P, C, levels, group,
+                         cluster, rows_per_block, held, device, stream);
 }
 
 extern "C" int baf_quantize_f32_u16(const void* x, const void* sel,
-                                    void* codes, void* mins, void* maxs,
-                                    void* partials, int B, int R, int P,
-                                    int C, int levels, int nrb, int device,
-                                    void* stream) {
-  return launch<uint16_t>(x, sel, codes, mins, maxs, partials, B, R, P, C,
-                          levels, nrb, device, stream);
+                                    void* codes, void* mins, void* maxs, int B,
+                                    int R, int P, int C, int levels, int group,
+                                    int cluster, int rows_per_block, int held,
+                                    int device, void* stream) {
+  return launch<uint16_t>(x, sel, codes, mins, maxs, B, R, P, C, levels, group,
+                          cluster, rows_per_block, held, device, stream);
 }

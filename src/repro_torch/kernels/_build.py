@@ -1,6 +1,7 @@
 """Build the CUDA sources under ``repro_torch/csrc`` and bind them with ctypes.
 
-Each kernel is one ``.cu`` file with a plain C entry point. At first use it
+Each kernel is one ``.cu`` file with a plain C entry point (and may include
+the ``.cuh`` headers beside it, which are part of every hash). At first use it
 is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/repro_torch/`` at the root of the checkout, named by a hash of the
 source and flags so an edited source is never served a stale library. The
@@ -73,6 +74,8 @@ class CudaKernel:
 
     def _target(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):     # included by sources
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 
@@ -88,7 +91,8 @@ class CudaKernel:
         tmp = self._out.with_suffix(f".{os.getpid()}.tmp")
         self._tmp = tmp
         self._proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+             str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish_build(self) -> None:
@@ -122,17 +126,21 @@ class CudaKernel:
         self.launches += 1
 
 
+_QUANTIZE_ARGS = [P, P, P, P, P,      # x, sel (nullable), codes, mins, maxs
+                  I, I, I, I, I,      # B, R, P, C, levels
+                  I, I, I, I,         # plan: group, cluster, rows, held
+                  I, P]               # device, stream
 QUANTIZE = CudaKernel("quantize", "quantize.cu", {
-    # x, sel (nullable), codes, mins, maxs, partials,
-    # B, R, P, C, levels, row blocks, device, stream
-    "baf_quantize_f32": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "baf_quantize_f32_u16": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "baf_quantize_f32": _QUANTIZE_ARGS,
+    "baf_quantize_f32_u16": _QUANTIZE_ARGS,
 })
+_HISTOGRAM_ARGS = [P, P, I, I, I,     # codes, counts, K, C, nsym
+                   I, I, I,           # plan: group, cluster, rows
+                   I, P]              # device, stream
 HISTOGRAM = CudaKernel("histogram", "histogram.cu", {
-    # codes, counts, K, C, nsym, device, stream
-    "baf_histogram_u8": [P, P, I, I, I, I, P],
-    "baf_histogram_u16": [P, P, I, I, I, I, P],
-    "baf_histogram_i32": [P, P, I, I, I, I, P],
+    "baf_histogram_u8": _HISTOGRAM_ARGS,
+    "baf_histogram_u16": _HISTOGRAM_ARGS,
+    "baf_histogram_i32": _HISTOGRAM_ARGS,
 })
 CONSOLIDATE = CudaKernel("consolidate", "consolidate.cu", {
     # z (in place), codes, mins, maxs, sel, B, R, P, C, levels, device, stream

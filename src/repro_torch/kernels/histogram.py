@@ -12,6 +12,8 @@ numpy codes, and ``channel_histogram_cdf`` runs both kernels on its
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -19,6 +21,53 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 
 MAX_NSYM = 4096                # bits <= 12
+MAX_GROUP = 4                  # channels a cluster counts
+MAX_CLUSTER = 16               # blocks of a cluster (8 is the portable size)
+ROWS_PER_BLOCK = 512           # rows a block counts, about
+SMEM_MAX = 231_424             # dynamic shared memory of one H100 block:
+                               # 227 KB less 1 KB left for the static part
+
+
+class HistogramPlan(NamedTuple):
+    """Launch plan of the histogram kernel: a cluster of ``cluster`` blocks
+    for each group of ``group`` channels, each block counting
+    ``rows_per_block`` rows into ``smem_bytes`` of shared memory."""
+    group: int
+    cluster: int
+    rows_per_block: int
+    smem_bytes: int
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _smem_bytes(group: int, nsym: int, cluster: int) -> int:
+    """One histogram of the group, and the bins a block sums as the
+    cluster's blocks store them (units of 16 bytes where nsym allows)."""
+    unit = 4 if nsym % 4 == 0 else 1
+    share = -(-(group * nsym // unit) // cluster)
+    return 4 * (group * nsym + cluster * share * unit)
+
+
+def histogram_plan(k: int, c: int, nsym: int) -> HistogramPlan:
+    """Channels a cluster: a power of two, at most 4, no wider than C needs,
+    narrower where the shared memory would not hold it. Blocks a cluster: a
+    power of two up to 16, about ROWS_PER_BLOCK rows each; at most 8 where
+    one block takes more than half an SM's shared memory. Both measured
+    best on the H100 among 2-8 channels by 1-16 blocks at K = 4096 and
+    32768 (``tools/baf_kernel_times.py --variants``)."""
+    group = min(MAX_GROUP, _pow2_ceil(c))
+    wanted = min(MAX_CLUSTER, _pow2_ceil(-(-k // ROWS_PER_BLOCK)))
+    while True:
+        cluster = wanted
+        if _smem_bytes(group, nsym, cluster) > SMEM_MAX // 2:
+            cluster = min(cluster, 8)
+        smem = _smem_bytes(group, nsym, cluster)
+        if smem <= SMEM_MAX or group == 1:
+            break
+        group //= 2
+    return HistogramPlan(group, cluster, -(-k // cluster), smem)
 
 
 def histogram_plain(codes: torch.Tensor, nsym: int) -> torch.Tensor:
@@ -37,7 +86,8 @@ def histogram(codes: torch.Tensor, nsym: int) -> torch.Tensor:
 
     Values that are negative or >= nsym (the padding sentinel ``nsym``
     included) are counted nowhere. On the card, codes are uint8, uint16 or
-    int32.
+    int32, and the kernel is one launch (see ``histogram_plan``) that
+    writes every count.
     """
     if codes.dim() != 2:
         raise ValueError(f"codes must be (K, C), got {tuple(codes.shape)}")
@@ -47,19 +97,32 @@ def histogram(codes: torch.Tensor, nsym: int) -> torch.Tensor:
         return histogram_plain(codes, nsym)
     if codes.device.type != "cuda":
         raise ValueError(f"no histogram kernel for device {codes.device}")
-    entry = {torch.uint8: "baf_histogram_u8",
-             torch.uint16: "baf_histogram_u16",
-             torch.int32: "baf_histogram_i32"}.get(codes.dtype)
-    if entry is None:
+    if codes.dtype not in (torch.uint8, torch.uint16, torch.int32):
         raise ValueError(f"histogram kernel takes uint8, uint16 or int32 "
                          f"codes, got {codes.dtype}")
     if not codes.is_contiguous():
         raise ValueError("codes must be contiguous")
     k, c = codes.shape
+    if c == 0:
+        return torch.empty((0, nsym), dtype=torch.int32, device=codes.device)
+    return launch_kernel(codes, nsym, histogram_plan(k, c, nsym))
+
+
+def launch_kernel(codes: torch.Tensor, nsym: int,
+                  plan: HistogramPlan) -> torch.Tensor:
+    """The kernel on codes ``histogram`` has checked, under ``plan``
+    (``histogram`` passes ``histogram_plan``'s; the tests and
+    ``tools/baf_kernel_times.py`` pass others). The kernel refuses a plan
+    that does not cover K or whose shared memory a block cannot have."""
+    k, c = codes.shape
+    entry = {torch.uint8: "baf_histogram_u8",
+             torch.uint16: "baf_histogram_u16",
+             torch.int32: "baf_histogram_i32"}[codes.dtype]
     counts = torch.empty((c, nsym), dtype=torch.int32, device=codes.device)
     dev, stream = _build.stream_args(codes)
     _build.HISTOGRAM.launch(entry, codes.data_ptr(), counts.data_ptr(), k, c,
-                            nsym, dev, stream)
+                            nsym, plan.group, plan.cluster,
+                            plan.rows_per_block, dev, stream)
     return counts
 
 

@@ -8,14 +8,42 @@ Replaces the TPU kernel ``repro/kernels/quantize.py::quantize_pallas``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.quant import compute_quant_params, quantize
 from repro_torch.kernels import _build
 
 MAX_BITS = 16                  # uint8 codes to 8 bits, uint16 above
-_ROW_BLOCK_MIN = 32            # rows per block of the reduction, at least
-_TARGET_BLOCKS = 264           # about two blocks per SM of an H100
+THREADS = 256                  # threads of a block
+HOLD = 16                      # values of x a thread keeps in registers
+MAX_GROUP = 8                  # channels a cluster reduces
+MAX_CLUSTER = 16               # blocks of a cluster (8 is the portable size)
+
+
+class QuantizePlan(NamedTuple):
+    """Launch plan of the quantize kernel: a cluster of ``cluster`` blocks
+    for each (example, group of ``group`` channels), each block reducing and
+    coding ``rows_per_block`` rows; ``held`` when those rows fit in HOLD
+    values a thread, so x is read once."""
+    group: int
+    cluster: int
+    rows_per_block: int
+    held: bool
+
+
+def quantize_plan(b: int, r: int, c: int) -> QuantizePlan:
+    """Channels a cluster: a power of two, at most 8, no wider than C needs.
+    Blocks a cluster: the fewest (a power of two up to 16) that hold R rows
+    in registers; measured best on the H100 among 2-8 channels by 2-16
+    blocks at B = 1 and 8 (``tools/baf_kernel_times.py --variants``). Rows
+    a block."""
+    group = min(MAX_GROUP, 1 << max(c - 1, 0).bit_length())
+    cap = HOLD * THREADS // group                   # rows a block can hold
+    cluster = min(MAX_CLUSTER, 1 << max(-(-r // cap) - 1, 0).bit_length())
+    rows = -(-r // cluster)
+    return QuantizePlan(group, cluster, rows, rows <= cap)
 
 
 def quantize_plain(x: torch.Tensor, bits: int,
@@ -29,13 +57,6 @@ def quantize_plain(x: torch.Tensor, bits: int,
     return quantize(x, qp), qp.mins.reshape(b, c), qp.maxs.reshape(b, c)
 
 
-def row_blocks(b: int, r: int, c: int) -> int:
-    """How many blocks split R in the min/max pass, to fill the card."""
-    groups = b * -(-c // 32)
-    want = -(-_TARGET_BLOCKS // max(groups, 1))
-    return max(1, min(want, -(-r // _ROW_BLOCK_MIN)))
-
-
 def quantize_fused(x: torch.Tensor, bits: int,
                    sel_idx: torch.Tensor | None = None):
     """Quantize the channels ``sel_idx`` of ``x`` with per-example side info.
@@ -45,6 +66,13 @@ def quantize_fused(x: torch.Tensor, bits: int,
     Returns (codes (B, R, C), mins (B, C) fp16, maxs (B, C) fp16); codes
     are uint8 for 1..8 bits and uint16 for 9..16, as ``core.quant``. An
     (example, channel) holding a NaN gets NaN side info and zero codes.
+
+    On the card this is one launch (``quantize_plan``): a cluster of up to
+    16 blocks per (example, group of up to 8 channels), each block holding
+    its rows in registers, so x is read once while R <= MAX_CLUSTER * HOLD
+    * THREADS / group: 8192 rows at 8 channels a group, 65536 at one.
+    Beyond that limit each block reads its rows a second time (from L2
+    where they are still there) in the same launch.
     """
     if not 1 <= bits <= MAX_BITS:
         raise ValueError(f"quantize kernel codes 1..{MAX_BITS} bits, got {bits}")
@@ -64,20 +92,29 @@ def quantize_fused(x: torch.Tensor, bits: int,
         raise ValueError("sel_idx must be contiguous int32 on x's device")
     b, r, p = x.shape
     c = p if sel_idx is None else sel_idx.numel()
+    if b * r * c == 0:
+        raise ValueError(f"empty input {tuple(x.shape)} has no min/max")
+    return launch_kernel(x, bits, sel_idx, quantize_plan(b, r, c))
+
+
+def launch_kernel(x: torch.Tensor, bits: int, sel_idx: torch.Tensor | None,
+                  plan: QuantizePlan):
+    """The kernel on inputs ``quantize_fused`` has checked, under ``plan``
+    (``quantize_fused`` passes ``quantize_plan``'s; the tests and
+    ``tools/baf_kernel_times.py`` pass others). The kernel refuses a plan
+    that does not cover R or holds more than HOLD values a thread."""
+    b, r, p = x.shape
+    c = p if sel_idx is None else sel_idx.numel()
     wide = bits > 8
     codes = torch.empty((b, r, c), dtype=torch.uint16 if wide else torch.uint8,
                         device=x.device)
     mins = torch.empty((b, c), dtype=torch.float16, device=x.device)
     maxs = torch.empty((b, c), dtype=torch.float16, device=x.device)
-    if codes.numel() == 0:
-        raise ValueError(f"empty input {tuple(x.shape)} has no min/max")
-    nrb = row_blocks(b, r, c)
-    partials = torch.empty(2 * b * nrb * c, dtype=torch.float32,
-                           device=x.device)
     dev, stream = _build.stream_args(x)
     _build.QUANTIZE.launch(
         "baf_quantize_f32_u16" if wide else "baf_quantize_f32", x.data_ptr(),
         None if sel_idx is None else sel_idx.data_ptr(), codes.data_ptr(),
-        mins.data_ptr(), maxs.data_ptr(), partials.data_ptr(), b, r, p, c,
-        (1 << bits) - 1, nrb, dev, stream)
+        mins.data_ptr(), maxs.data_ptr(), b, r, p, c, (1 << bits) - 1,
+        plan.group, plan.cluster, plan.rows_per_block, int(plan.held), dev,
+        stream)
     return codes, mins, maxs

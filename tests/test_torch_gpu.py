@@ -7,7 +7,8 @@ with an H100:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: quantize codes and side info, histogram counts and the CDF
-must be exact (NaN side info at the same places); consolidation is held
+must be exact (NaN side info at the same places, -0.0 and +0.0 told
+apart); consolidation is held
 bit-identical (the kernel keeps the reference's operation order, built with
 -fmad=false). Flash attention: atol/rtol 2e-5 in float32 and 3e-2 in bf16
 (the JAX kernel tests' tolerances; the kernel sums in another order and
@@ -20,6 +21,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import histogram as hist_kernel
+from repro_torch.kernels import quantize as quant_kernel
 from repro_torch.kernels.consolidate import consolidate_fused, consolidate_plain
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
@@ -82,6 +85,147 @@ def test_quantize_kernel_propagates_nan(cuda):
             assert torch.equal(_bits(g)[keep], _bits(w)[keep])
         assert torch.equal(got[0], want[0])
         assert int(got[0][1, :, 2].to(torch.int32).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("r", [1, 7, 4095, 65536])
+@pytest.mark.parametrize("c", [1, 33, 64])
+def test_quantize_kernel_edge_shapes(cuda, r, c):
+    """R of one row, of 7, not a multiple of the cluster's blocks (4095),
+    and beyond what the blocks hold in registers (65536: its rows are read
+    twice); C of one channel and C not a multiple of the channel group."""
+    rng = np.random.default_rng(r + c)
+    p = 256
+    x = torch.from_numpy(_x(rng, (1, r, p), 2.0, 0.5)).to(cuda)
+    sel = torch.from_numpy(rng.permutation(p)[:c].astype(np.int32)).to(cuda)
+    for bits in (8, 12):
+        got = quantize_fused(x, bits, sel)
+        torch.cuda.synchronize()
+        want = quantize_plain(x, bits, sel.long())
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("r", [1, 7, 100])
+def test_quantize_kernel_cluster_wider_than_its_rows(cuda, r):
+    """A plan the wrapper does not pick, through ``launch_kernel``: 16
+    blocks a cluster over R < 16 rows (blocks without rows still send their
+    partials) and over R not a multiple of 16."""
+    rng = np.random.default_rng(r)
+    x = torch.from_numpy(_x(rng, (2, r, 64), 1.0)).to(cuda)
+    sel = torch.from_numpy(rng.permutation(64)[:20].astype(np.int32))
+    sel = sel.to(cuda)
+    plan = quant_kernel.QuantizePlan(8, 16, -(-r // 16), True)
+    got = quant_kernel.launch_kernel(x, 8, sel, plan)
+    torch.cuda.synchronize()
+    for g, w in zip(got, quantize_plain(x, 8, sel.long())):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("bits", [8, 12])
+def test_quantize_kernel_channels_selected_twice(cuda, bits):
+    """sel naming a channel of x more than once: each of its c gets the
+    same side info and codes, as the plain gather gives (the kernel ranks
+    equal indices by position)."""
+    rng = np.random.default_rng(bits)
+    x = torch.from_numpy(_x(rng, (2, 1000, 40), 1.0)).to(cuda)
+    sel = torch.tensor([5, 17, 5, 39, 0, 17, 5, 22], dtype=torch.int32,
+                       device=cuda)
+    for plan in (quant_kernel.quantize_plan(2, 1000, 8),
+                 quant_kernel.QuantizePlan(4, 16, 63, True)):
+        got = quant_kernel.launch_kernel(x, bits, sel, plan)
+        torch.cuda.synchronize()
+        for g, w in zip(got, quantize_plain(x, bits, sel.long())):
+            assert torch.equal(_bits(g), _bits(w))
+
+
+def test_kernels_refuse_plans_short_of_their_rows(cuda):
+    """A plan whose blocks do not cover every row is refused by the
+    kernel's entry (KernelError), not run on part of the input."""
+    x = torch.ones((1, 100, 8), device=cuda)
+    with pytest.raises(_build.KernelError):
+        quant_kernel.launch_kernel(x, 8, None,
+                                   quant_kernel.QuantizePlan(8, 4, 10, True))
+    codes = torch.zeros((100, 8), dtype=torch.uint8, device=cuda)
+    with pytest.raises(_build.KernelError):
+        hist_kernel.launch_kernel(codes, 256,
+                                  hist_kernel.HistogramPlan(8, 4, 10, 0))
+
+
+def test_quantize_kernel_takes_every_channel_without_sel(cuda):
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(_x(rng, (2, 4096, 256), 1.0)).to(cuda)
+    for bits in (8, 12):
+        got = quantize_fused(x, bits)
+        torch.cuda.synchronize()
+        for g, w in zip(got, quantize_plain(x, bits)):
+            assert torch.equal(_bits(g), _bits(w))
+
+
+def test_quantize_kernel_orders_signed_zeros_like_jnp(cuda):
+    """Channels of exact zeros of both signs, in both orders: the kernel's
+    side info and codes equal the plain version's on the CPU (which the CPU
+    tests hold to jnp.min/jnp.max): the min of a channel holding -0.0 and
+    no negative value is -0.0 (fp16 0x8000)."""
+    rng = np.random.default_rng(8)
+    r, p = 4096, 256
+    x = _x(rng, (2, r, p), 1.0)
+    x[:, :, 0] = 0.0
+    x[:, 5::2, 0] = -0.0                         # +0 first, then -0
+    x[:, :, 1] = -0.0
+    x[:, 3::4, 1] = 0.0                          # -0 first
+    x[:, :, 2] = 0.0                             # all +0
+    x[:, :, 3] = -0.0                            # all -0
+    x[:, :, 4] = np.abs(x[:, :, 4])
+    x[1, 4000, 4] = -0.0                         # one -0 late among positives
+    sel = np.array([4, 0, 1, 2, 3] + list(range(100, 159)), np.int32)
+    xt = torch.from_numpy(x)
+    for bits in (8, 12):
+        got = quantize_fused(xt.to(cuda), bits, torch.from_numpy(sel).to(cuda))
+        torch.cuda.synchronize()
+        want = quantize_plain(xt, bits, torch.from_numpy(sel).long())
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g.cpu()), _bits(w))
+        mins = got[1].cpu().view(torch.int16).to(torch.int32) & 0xFFFF
+        assert (mins[:, 1] == 0x8000).all() and (mins[:, 2] == 0x8000).all()
+        assert int(mins[1, 0]) == 0x8000 and (mins[:, 3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int32])
+@pytest.mark.parametrize("kind", ["single", "peaked"])
+@pytest.mark.parametrize("shape", [(4096, 64), (3, 5), (1000, 5),
+                                   (32768, 64)])
+def test_histogram_kernel_hot_bins(cuda, dtype, kind, shape):
+    """One symbol everywhere, and codes heaped on a few symbols (most of a
+    warp's codes land on one bin); K below the cluster (3 rows) and C=5."""
+    rng = np.random.default_rng(4)
+    nsym = 256 if dtype == np.uint8 else 4096
+    if kind == "single":
+        v = np.full(shape, 17, np.int64)
+    else:
+        v = np.minimum(rng.geometric(0.6, size=shape) - 1 + 100, nsym - 1)
+    codes = torch.from_numpy(v.astype(dtype)).to(cuda)
+    got = histogram(codes, nsym)
+    torch.cuda.synchronize()
+    want = histogram_plain(codes, nsym)
+    assert torch.equal(got, want)
+    assert int(got.sum()) == shape[0] * shape[1]
+
+
+@pytest.mark.parametrize("dtype,nsym", [(np.uint8, 256), (np.int32, 4096)])
+@pytest.mark.parametrize("k", [3, 100])
+def test_histogram_kernel_cluster_wider_than_its_rows(cuda, dtype, nsym, k):
+    """16 blocks a cluster over K < 16 rows, and over K not a multiple of
+    16, through ``launch_kernel``: blocks without rows still send their
+    (zero) bins."""
+    rng = np.random.default_rng(k)
+    codes = torch.from_numpy(rng.integers(0, nsym, size=(k, 6))
+                             .astype(dtype)).to(cuda)
+    group = 8 if nsym == 256 else 2
+    got = hist_kernel.launch_kernel(
+        codes, nsym, hist_kernel.HistogramPlan(group, 16, -(-k // 16), 0))
+    torch.cuda.synchronize()
+    assert torch.equal(got, histogram_plain(codes, nsym))
 
 
 @pytest.mark.parametrize("bits", [1, 4, 8, 12])

@@ -23,6 +23,8 @@ from repro.kernels.histogram import histogram_pallas
 from repro.kernels.quantize import quantize_pallas
 from repro_torch.core import quant as tq
 from repro_torch.kernels.consolidate import consolidate_fused
+from repro_torch.kernels import histogram as thist
+from repro_torch.kernels import quantize as tquant
 from repro_torch.kernels.histogram import (cdf, channel_histogram,
                                           channel_histogram_cdf, histogram)
 from repro_torch.kernels.quantize import quantize_fused
@@ -243,3 +245,81 @@ def test_wrappers_refuse_devices_without_a_kernel():
                                       device="meta"),
                           torch.empty((1, 4), dtype=torch.float16,
                                       device="meta"), 8)
+
+
+def _assert_partition(spans, n):
+    """[lo, hi) spans, empty ones dropped, cover [0, n) exactly once."""
+    spans = sorted((lo, hi) for lo, hi in spans if hi > lo)
+    at = 0
+    for lo, hi in spans:
+        assert lo == at, (lo, at)
+        at = hi
+    assert at == n
+
+
+def _cluster_ok(cluster):
+    return 1 <= cluster <= 16 and cluster & (cluster - 1) == 0
+
+
+@pytest.mark.parametrize("k,c,nsym", [
+    (4096, 64, 256), (32768, 64, 256), (4096, 64, 4096), (1000, 5, 16),
+    (3, 5, 256), (4096, 5, 2), (1000, 70, 4096), (100, 1, 2), (0, 3, 256),
+    (4096, 64, 1), (32768, 64, 4096)])
+def test_histogram_plan_covers_rows_and_channels_once(k, c, nsym):
+    """The histogram kernel's launch plan at the path's and the tests'
+    shapes: every row and channel counted by exactly one block, every bin
+    stored by exactly one block, and no block over 227 KB of shared
+    memory."""
+    plan = thist.histogram_plan(k, c, nsym)
+    assert _cluster_ok(plan.cluster)
+    assert 1 <= plan.group <= 8 and plan.group & (plan.group - 1) == 0
+    unit = 4 if nsym % 4 == 0 else 1
+    share = -(-(plan.group * nsym // unit) // plan.cluster)
+    # one histogram of the group, and the bins a block sums as every block
+    # of the cluster stores them
+    assert plan.smem_bytes == 4 * (plan.group * nsym
+                                   + plan.cluster * share * unit)
+    assert plan.smem_bytes <= thist.SMEM_MAX
+    if plan.smem_bytes > thist.SMEM_MAX // 2:
+        assert plan.cluster <= 8              # one block per SM: portable
+    rpb = plan.rows_per_block
+    _assert_partition([(q * rpb, min(k, (q + 1) * rpb))
+                       for q in range(plan.cluster)], k)
+    groups = -(-c // plan.group)
+    _assert_partition([(g * plan.group, min(c, (g + 1) * plan.group))
+                       for g in range(groups)], c)
+    for g in range(groups):                   # the bins of one group
+        n = min(plan.group, c - g * plan.group) * nsym // unit
+        _assert_partition([(q * share, min(n, (q + 1) * share))
+                           for q in range(plan.cluster)], n)
+
+
+@pytest.mark.parametrize("b,r,c", [
+    (1, 4096, 64), (8, 4096, 64), (1, 65536, 64), (1, 1, 64), (1, 7, 64),
+    (1, 4095, 1), (1, 4096, 33), (2, 4096, 256), (3, 1000, 40), (1, 77, 33),
+    (1, 65536, 1), (2, 16, 4), (1, 8192, 64), (1, 8193, 64)])
+def test_quantize_plan_covers_rows_and_channels_once(b, r, c):
+    """The quantize kernel's launch plan: each (example, channel group) is
+    one cluster whose blocks split R exactly once; groups (channels ranked
+    by their index in x) take every channel once; a block that holds its
+    rows keeps at most HOLD values a thread."""
+    plan = tquant.quantize_plan(b, r, c)
+    assert _cluster_ok(plan.cluster)
+    assert 1 <= plan.group <= 8 and plan.group & (plan.group - 1) == 0
+    rpb = plan.rows_per_block
+    _assert_partition([(q * rpb, min(r, (q + 1) * rpb))
+                       for q in range(plan.cluster)], r)
+    cap = tquant.HOLD * tquant.THREADS // plan.group
+    assert plan.held == (rpb <= cap)
+    if r * plan.group <= tquant.MAX_CLUSTER * tquant.HOLD * tquant.THREADS:
+        assert plan.held                      # the docstring's limit
+    # the kernel's grouping: channel c takes slot below[c] - first of the
+    # group whose ranks [first, first + group) hold below[c], the count of
+    # channels before it by (index in x, position); duplicates included
+    sel = np.random.default_rng(c).integers(0, 256, size=c)
+    pos = np.arange(c)
+    below = np.array([np.sum((sel < sel[i]) | ((sel == sel[i]) & (pos < i)))
+                      for i in range(c)])
+    np.testing.assert_array_equal(np.sort(below), pos)
+    groups = -(-c // plan.group)
+    assert groups * plan.group >= c > (groups - 1) * plan.group
