@@ -227,24 +227,23 @@ def check_kernels(dev) -> dict:
     import torch
     from repro_torch.kernels.consolidate import (consolidate_fused,
                                                  consolidate_plain)
-    from repro_torch.kernels.histogram import HistogramPlan
-    from repro_torch.kernels.quantize import (QuantizePlan, launch_kernel,
-                                              quantize_fused, quantize_plain,
-                                              quantize_plan)
+    from repro_torch.kernels.histogram import _plan as histogram_plan_of
+    from repro_torch.kernels.quantize import (QuantizePlan, _launch,
+                                              channel_order, quantize_fused,
+                                              quantize_plain, quantize_plan)
 
     gen = torch.Generator().manual_seed(0)
     errs = {}
 
     def quantize_case(b, r, p, c, scale, offset, bits=BITS, every=False,
                       plan=None):
-        """``plan``: one the wrapper would not pick, through
-        launch_kernel."""
+        """``plan``: one the wrapper would not pick, through _launch."""
         x = (torch.randn((b, r, p), generator=gen) * scale + offset).to(dev)
         x[0, :, 3] = offset                          # a constant channel
         sel = None if every else \
             torch.randperm(p, generator=gen)[:c].to(torch.int32).to(dev)
         got = quantize_fused(x, bits, sel) if plan is None else \
-            launch_kernel(x, bits, sel, plan)
+            _launch(x, bits, None if every else channel_order(sel), plan)
         want = quantize_plain(x, bits, None if every else sel.long())
         sync(dev)
         ok = all(bits_equal(g, w) for g, w in zip(got, want))
@@ -297,7 +296,7 @@ def check_kernels(dev) -> dict:
                                        device=dev), 4096, "i32 one symbol"),
         histogram_case(dev, big[:3].to(dev), 256, "u8 few rows"),
         histogram_case(dev, big[:3].to(dev), 256, "u8 K < cluster",
-                       plan=HistogramPlan(8, 16, 1, 0)),
+                       plan=histogram_plan_of(3, 256, 4, 16)),
         histogram_case(dev, peaked.to(dev), 4096, "u16 peaked, C=5"))
 
     def consolidate_case(b, r, p, c, bits):
@@ -324,12 +323,12 @@ def check_kernels(dev) -> dict:
 
 def histogram_case(dev, codes, nsym, label, plan=None) -> float:
     """The histogram kernel against its plain version: counts exact.
-    ``plan``: one the wrapper would not pick, through launch_kernel."""
+    ``plan``: one the wrapper would not pick, through _launch."""
     import torch
-    from repro_torch.kernels.histogram import (histogram, histogram_plain,
-                                               histogram_plan, launch_kernel)
+    from repro_torch.kernels.histogram import (_launch, histogram,
+                                               histogram_plain, histogram_plan)
     got = histogram(codes, nsym) if plan is None else \
-        launch_kernel(codes, nsym, plan)
+        _launch(codes, nsym, plan)
     want = histogram_plain(codes, nsym)
     sync(dev)
     ok = bool(torch.equal(got, want))
@@ -1109,7 +1108,8 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes) -> list:
     from repro_torch.kernels.consolidate import (consolidate_fused,
                                                  consolidate_plain)
     from repro_torch.kernels.histogram import histogram, histogram_plain
-    from repro_torch.kernels.quantize import quantize_fused, quantize_plain
+    from repro_torch.kernels.quantize import (channel_order, quantize_fused,
+                                              quantize_plain)
 
     gen = torch.Generator().manual_seed(1)
     rows = []
@@ -1140,7 +1140,8 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes) -> list:
         x = torch.randn((b, R, P), generator=gen).to(dev)
         sel = torch.randperm(P, generator=gen)[:C].to(torch.int32).to(dev)
         sel64 = sel.long()
-        ms = timed(lambda: quantize_fused(x, BITS, sel))
+        order = channel_order(sel)      # once per selection, as the plan
+        ms = timed(lambda: quantize_fused(x, BITS, sel, order=order))
         plain = timed(lambda: quantize_plain(x, BITS, sel64))
         # selected elements read once, codes and fp16 side info written once
         nbytes = b * R * C * 4 + C * 4 + b * R * C + 2 * b * C * 2

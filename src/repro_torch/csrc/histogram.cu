@@ -12,15 +12,13 @@
 //
 // Design: one launch and no memset. The grid is (cluster, channel groups);
 // a thread-block cluster of N blocks owns one group of `group` channels
-// (a power of two up to 8; the plan takes 4) and splits its K rows N ways.
+// (a power of two up to 4) and splits its K rows N ways.
 //   1. Each block zeroes a private histogram of its group in shared memory
 //      (group * nsym int32, through the opt-in dynamic shared memory) and
 //      counts its rows into it with one shared atomic per code. Measured on
-//      the H100 (tools/baf_kernel_times.py --variants), this beats
-//      aggregating equal codes of a warp first (__match_any_sync) and
-//      per-warp sub-histograms on uniform codes, on the path's own codes
-//      and on one symbol everywhere; kHotBins keeps those two variants for
-//      the tool.
+//      the H100, this beat aggregating equal codes of a warp first
+//      (__match_any_sync) and per-warp sub-histograms on uniform codes, on
+//      the path's own codes and on one symbol everywhere (PERF.md).
 //   2. Block r sums bins [r * share, (r + 1) * share) of the group: every
 //      block stores those bins of its histogram into block r's shared
 //      memory with 16-byte st.async, counted on block r's mbarrier
@@ -29,6 +27,11 @@
 //      block reads another's shared memory, so none waits for the others
 //      before it exits. The receive buffer doubles the shared memory, so
 //      nsym = 4096 takes groups of 4 channels (128 KB a block).
+// The launch plan (group, cluster, rows a block, the unit and share of the
+// bins a block sums, shared bytes) is computed in one place,
+// repro_torch/kernels/histogram.py::histogram_plan; the entry below only
+// refuses a plan that would not cover K and the bins, or that asks for
+// more shared memory than the plan's bins need or a block may have.
 // Loads: where C is a multiple of the group and the base is aligned, a row
 // of the group is read with 4-, 8- or 16-byte vector loads (one 4-byte load
 // per row for 4 u8 channels); otherwise one code per thread, lanes over
@@ -46,26 +49,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 8;
+constexpr int kMaxGroup = 4;         // histogram.py MAX_GROUP
 constexpr int kMaxCluster = 16;
 constexpr int kSmemMax = 231424;     // dynamic shared memory a block may opt
                                      // into: 227 KB less 1 KB of static
 constexpr int kMaxDevices = 64;
-// How equal codes of one warp reach the shared histogram:
-// 0 one shared atomic per code; 1 aggregated per warp with __match_any_sync;
-// 2 one sub-histogram per warp where they fit, summed before the cluster
-// reduction.
-constexpr int kHotBins = 0;
-
-__device__ __forceinline__ void add(int* hist, int bin, int lane) {
-  if constexpr (kHotBins == 1) {
-    const unsigned peers = __match_any_sync(0xffffffffu, bin);
-    if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
-  } else {
-    if (bin >= 0) atomicAdd(&hist[bin], 1);
-  }
-}
 
 template <int VB> struct Vec;
 template <> struct Vec<4> { using T = uint32_t; };
@@ -93,14 +81,14 @@ __device__ __forceinline__ uint32_t element(V v, int e) {
 }
 
 // VB = 0: one code per thread; VB = 4, 8, 16: vector loads of VB bytes.
-// Shared memory: `copies` histograms of the group, then the bins this block
-// sums, as every block of the cluster stores them (nblk x share units of
+// Shared memory: the group's histogram, then the bins this block sums, as
+// every block of the cluster stores them (nblk x share units of
 // 1 << unit_log2 ints).
 template <typename T, int VB>
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const T* __restrict__ codes, int* __restrict__ counts, int K, int C,
             int nsym, int group_log2, int vec_log2, int rows_per_block,
-            int copies, int unit_log2, int share) {
+            int unit_log2, int share) {
   extern __shared__ int4 smem4[];
   int* sh = reinterpret_cast<int*>(smem4);
   __shared__ uint64_t s_bar;
@@ -110,21 +98,18 @@ hist_kernel(const T* __restrict__ codes, int* __restrict__ counts, int K, int C,
   const int group = 1 << group_log2;
   const int c0 = blockIdx.y * group;
   const int nc = min(group, C - c0);
-  const int stride = group * nsym;           // ints of one sub-histogram
-  const int lane = threadIdx.x & 31;
+  const int stride = group * nsym;           // ints of the histogram
   const int nunits = (nc * nsym) >> unit_log2;
   const int mine = max(0, min(share, nunits - rank * share));
   if (threadIdx.x == 0)
     dsm::expect_bytes(&s_bar, (uint32_t)(nblk * mine) << (unit_log2 + 2));
   dsm::arrive_relaxed();
 
-  const int n = stride * copies;
-  for (int i = threadIdx.x; i < (n >> 2); i += kThreads) smem4[i] = make_int4(0, 0, 0, 0);
-  for (int i = (n & ~3) + threadIdx.x; i < n; i += kThreads) sh[i] = 0;
+  for (int i = threadIdx.x; i < (stride >> 2); i += kThreads)
+    smem4[i] = make_int4(0, 0, 0, 0);
+  for (int i = (stride & ~3) + threadIdx.x; i < stride; i += kThreads) sh[i] = 0;
   __syncthreads();
 
-  int* hist = sh;
-  if constexpr (kHotBins == 2) hist += ((threadIdx.x >> 5) % copies) * stride;
   const int k0 = rank * rows_per_block;
   const int k1 = min(K, k0 + rows_per_block);
   if constexpr (VB > 0) {
@@ -142,8 +127,7 @@ hist_kernel(const T* __restrict__ codes, int* __restrict__ counts, int K, int C,
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const uint32_t code = element<T>(w, e);
-        const bool in = ok && code < (uint32_t)nsym;
-        add(hist, in ? (v * E + e) * nsym + (int)code : -1, lane);
+        if (ok && code < (uint32_t)nsym) atomicAdd(&sh[(v * E + e) * nsym + code], 1);
       }
     }
   } else {
@@ -153,20 +137,10 @@ hist_kernel(const T* __restrict__ codes, int* __restrict__ counts, int K, int C,
     const int step = kThreads >> group_log2;
     for (int base = k0; base < k1; base += step) {
       const int r = base + row_off;
-      int bin = -1;
       if (r < k1 && j < nc) {
         const uint32_t code = (uint32_t)(int)codes[(size_t)r * C + c0 + j];
-        if (code < (uint32_t)nsym) bin = j * nsym + (int)code;
+        if (code < (uint32_t)nsym) atomicAdd(&sh[j * nsym + code], 1);
       }
-      add(hist, bin, lane);
-    }
-  }
-  if constexpr (kHotBins == 2) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < stride; i += kThreads) {
-      int s = sh[i];
-      for (int w = 1; w < copies; ++w) s += sh[w * stride + i];
-      sh[i] = s;
     }
   }
   __syncthreads();
@@ -174,7 +148,7 @@ hist_kernel(const T* __restrict__ codes, int* __restrict__ counts, int K, int C,
   // 2. each bin to the block that sums it (every block has started: the
   // cluster barrier), then this block's share summed over the cluster
   dsm::wait();
-  int* recv = sh + stride * copies;
+  int* recv = sh + stride;
   const uint32_t bar = dsm::smem(&s_bar);
   for (int u = threadIdx.x; u < nunits; u += kThreads) {
     const int o = u / share;
@@ -215,7 +189,8 @@ int log2_exact(int v) {
 template <typename T, int VB>
 int launch_vec(const T* codes, int* counts, int K, int C, int nsym,
                int group_log2, int cluster, int groups, int rows_per_block,
-               int device, cudaStream_t s) {
+               int unit_log2, int share, int smem_bytes, int device,
+               cudaStream_t s) {
   auto kern = hist_kernel<T, VB>;
   static bool ready[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
@@ -228,25 +203,12 @@ int launch_vec(const T* codes, int* counts, int K, int C, int nsym,
     if (err != cudaSuccess) return (int)err;
     ready[device] = true;
   }
-  // one histogram of the group, and the bins this block sums as the
-  // cluster's blocks store them
-  const size_t one = (size_t)(nsym << group_log2) * sizeof(int);
-  const int unit_log2 = (nsym & 3) == 0 ? 2 : 0;
-  const int units = (nsym << group_log2) >> unit_log2;
-  const int share = (units + cluster - 1) / cluster;
-  const size_t recv = (size_t)cluster * share * (sizeof(int) << unit_log2);
-  if (one + recv > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  int copies = 1;
-  if (kHotBins == 2) {
-    const size_t fit = (kSmemMax - recv) / one;
-    copies = fit < (size_t)kWarps ? (int)fit : kWarps;
-  }
   const int vec_log2 =
       VB ? group_log2 + log2_exact((int)sizeof(T)) - log2_exact(VB) : 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, groups, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = one * copies + recv;
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -256,19 +218,27 @@ int launch_vec(const T* codes, int* counts, int K, int C, int nsym,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, kern, codes, counts, K, C, nsym,
-                                 group_log2, vec_log2, rows_per_block, copies,
+                                 group_log2, vec_log2, rows_per_block,
                                  unit_log2, share);
 }
 
 template <typename T>
 int launch(const void* codes, void* counts, int K, int C, int nsym, int group,
-           int cluster, int rows_per_block, int device, void* stream) {
+           int cluster, int rows_per_block, int unit, int share,
+           int smem_bytes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int group_log2 = log2_exact(group);
+  const int unit_log2 = unit == 4 ? 2 : unit == 1 ? 0 : -1;
+  // the plan must cover the K rows and the group's bins, and give a block
+  // the shared memory its histogram and the bins it sums take
+  const long long bins = (long long)group * nsym;
   if (K < 0 || C <= 0 || nsym <= 0 || group_log2 < 0 || group > kMaxGroup ||
       cluster < 1 || cluster > kMaxCluster || rows_per_block < 0 ||
-      (long long)rows_per_block * cluster < K)
+      (long long)rows_per_block * cluster < K || unit_log2 < 0 ||
+      nsym % unit != 0 || share < 0 || (long long)share * cluster * unit < bins ||
+      (long long)smem_bytes < 4 * (bins + (long long)cluster * share * unit) ||
+      smem_bytes > kSmemMax)
     return (int)cudaErrorInvalidValue;
   const int groups = (C + group - 1) / group;
   cudaStream_t s = (cudaStream_t)stream;
@@ -281,39 +251,33 @@ int launch(const void* codes, void* counts, int K, int C, int nsym, int group,
   if (C % group == 0 && vb >= 4 && (uintptr_t)codes % vb == 0) {
     if (vb == 16)
       return launch_vec<T, 16>(p, out, K, C, nsym, group_log2, cluster, groups,
-                               rows_per_block, device, s);
+                               rows_per_block, unit_log2, share, smem_bytes,
+                               device, s);
     if (vb == 8)
       return launch_vec<T, 8>(p, out, K, C, nsym, group_log2, cluster, groups,
-                              rows_per_block, device, s);
+                              rows_per_block, unit_log2, share, smem_bytes,
+                              device, s);
     return launch_vec<T, 4>(p, out, K, C, nsym, group_log2, cluster, groups,
-                            rows_per_block, device, s);
+                            rows_per_block, unit_log2, share, smem_bytes,
+                            device, s);
   }
   return launch_vec<T, 0>(p, out, K, C, nsym, group_log2, cluster, groups,
-                          rows_per_block, device, s);
+                          rows_per_block, unit_log2, share, smem_bytes, device,
+                          s);
 }
 
 }  // namespace
 
 // codes (K, C) row-major; counts (C, nsym) int32, every count written here.
-// The plan (group, cluster, rows_per_block) comes from
-// repro_torch/kernels/histogram.py::histogram_plan.
-extern "C" int baf_histogram_u8(const void* codes, void* counts, int K, int C,
-                                int nsym, int group, int cluster,
-                                int rows_per_block, int device, void* stream) {
-  return launch<uint8_t>(codes, counts, K, C, nsym, group, cluster,
-                         rows_per_block, device, stream);
-}
-
-extern "C" int baf_histogram_u16(const void* codes, void* counts, int K, int C,
-                                 int nsym, int group, int cluster,
-                                 int rows_per_block, int device, void* stream) {
-  return launch<uint16_t>(codes, counts, K, C, nsym, group, cluster,
-                          rows_per_block, device, stream);
-}
-
-extern "C" int baf_histogram_i32(const void* codes, void* counts, int K, int C,
-                                 int nsym, int group, int cluster,
-                                 int rows_per_block, int device, void* stream) {
-  return launch<int32_t>(codes, counts, K, C, nsym, group, cluster,
-                         rows_per_block, device, stream);
-}
+// The plan (group, cluster, rows_per_block, unit, share, smem_bytes) comes
+// from repro_torch/kernels/histogram.py::histogram_plan.
+#define BAF_HISTOGRAM(NAME, T)                                                \
+  extern "C" int NAME(const void* codes, void* counts, int K, int C, int nsym, \
+                      int group, int cluster, int rows_per_block, int unit,   \
+                      int share, int smem_bytes, int device, void* stream) {  \
+    return launch<T>(codes, counts, K, C, nsym, group, cluster,               \
+                     rows_per_block, unit, share, smem_bytes, device, stream); \
+  }
+BAF_HISTOGRAM(baf_histogram_u8, uint8_t)
+BAF_HISTOGRAM(baf_histogram_u16, uint16_t)
+BAF_HISTOGRAM(baf_histogram_i32, int32_t)

@@ -14,10 +14,13 @@
 //
 // Design: one launch, no scratch. A thread-block cluster of N blocks owns
 // one (example, group of `group` channels) and splits its R rows N ways.
-//   1. The group's channels are taken in the order of their index in x
-//      (each block ranks sel in shared memory, up to kSortMax channels), so
-//      the 8 channels of a group lie close together in a row and one
-//      warp's loads (8 channels x 4 rows) touch few sectors.
+//   1. The group's channels come from a table the caller computes once per
+//      selection (kernels/quantize.py::channel_order): the channels sorted
+//      by their index in x, so the 8 channels of a group lie close together
+//      in a row and one warp's loads (8 channels x 4 rows) touch few
+//      sectors. A thread reads its slot's (output column, x column) pair
+//      with one 8-byte load. Without sel there is no table: slot k is
+//      channel k.
 //   2. Each block loads its rows of its channels once into registers
 //      (kHold values a thread) and reduces them: shuffles, then shared
 //      memory across warps.
@@ -30,7 +33,7 @@
 //   4. Each block quantizes the values it holds and writes the codes. A
 //      block whose rows do not fit in kHold values a thread re-reads them
 //      (mostly from L2) in this pass instead.
-// The chain a block waits on: sel, then x (one round of loads), the
+// The chain a block waits on: the table, then x (one round of loads), the
 // block's reduction, the other blocks' partials, the codes.
 // Side info (exactly repro/core/quant.py::compute_quant_params): the min
 // rounds to fp16 and saturates at -65504; the max rounds to fp16, widens by
@@ -59,7 +62,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kHold = 16;          // values a thread keeps in registers
 constexpr int kMaxGroup = 8;
 constexpr int kMaxCluster = 16;
-constexpr int kSortMax = 1024;     // channels ranked by index in x
 constexpr int kMaxDevices = 64;
 
 // NaN-propagating min and max with jnp's order of the zeros.
@@ -90,12 +92,10 @@ __device__ __forceinline__ CodeT code_of(float v, float m, float rng, float lv) 
 // kHeld: every block's rows fit in kHold values a thread (one read of x).
 template <typename CodeT, bool kHeld>
 __global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float* __restrict__ x, const int* __restrict__ sel,
+quantize_kernel(const float* __restrict__ x, const int2* __restrict__ chans,
                 CodeT* __restrict__ codes, __half* __restrict__ mins,
                 __half* __restrict__ maxs, int R, int P, int C, int levels,
                 int group_log2, int rows_per_block) {
-  __shared__ int s_sel[kSortMax];
-  __shared__ int s_member[kMaxGroup];         // channel c of each slot or -1
   __shared__ float s_wmn[kWarps][kMaxGroup], s_wmx[kWarps][kMaxGroup];
   __shared__ float s_mn[kMaxGroup], s_mx[kMaxGroup];
   // every block's partial min (slots 0..group) and max (group..2 group),
@@ -109,37 +109,21 @@ quantize_kernel(const float* __restrict__ x, const int* __restrict__ sel,
   const int group = 1 << group_log2;
   if (threadIdx.x == 0) dsm::expect_bytes(&s_bar, nblk * 2 * group * 4);
   dsm::arrive_relaxed();
-  const int first = blockIdx.y * group;       // rank of the group's first
   const int b = blockIdx.z;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
 
-  // 1. the group's channels: ranks [first, first + group) of sel by value
-  const bool ranked = sel != nullptr && C <= kSortMax;
-  if (!ranked) {
-    if (t < group) s_member[t] = first + t < C ? first + t : -1;
-  } else {
-    for (int i = t; i < C; i += kThreads) s_sel[i] = sel[i];
-    if (t < group) s_member[t] = -1;
-    __syncthreads();
-    for (int c = t; c < C; c += kThreads) {
-      const int pc = s_sel[c];
-      int below = 0;
-      for (int j = 0; j < C; ++j) {
-        const int pj = s_sel[j];
-        below += (pj < pc) | ((pj == pc) & (j < c));
-      }
-      if (below >= first && below < first + group) s_member[below - first] = c;
-    }
-  }
-  __syncthreads();
-
-  // lanes over the group's slots, then rows
+  // 1. lanes over the group's slots, then rows; slot k of the table is
+  // output column c, read from column p of x (thread t < group holds slot t)
   const int slot = t & (group - 1);
+  const int entry = blockIdx.y * group + slot;
+  int c = -1, p = -1;
+  if (entry < C) {
+    const int2 e = chans ? chans[entry] : make_int2(entry, entry);
+    c = e.x;
+    p = e.y < P ? e.y : -1;                    // callers validate sel
+  }
   const int row_off = t >> group_log2;
   const int step = kThreads >> group_log2;
-  const int c = s_member[slot];
-  int p = c < 0 ? -1 : (ranked ? s_sel[c] : (sel ? sel[c] : c));
-  if (p >= P) p = -1;                          // callers validate sel
   const float* xb = x + (size_t)b * R * P + (p < 0 ? 0 : p);
   const int r0 = rank * rows_per_block;
   const int r1 = min(R, r0 + rows_per_block);
@@ -211,10 +195,9 @@ quantize_kernel(const float* __restrict__ x, const int* __restrict__ sel,
     const float m = __half2float(hmn);
     s_m[t] = m;
     s_rng[t] = fmaxf(__fsub_rn(__half2float(hmx), m), 1e-12f);
-    const int ct = s_member[t];
-    if (rank == 0 && ct >= 0) {
-      mins[(size_t)b * C + ct] = hmn;
-      maxs[(size_t)b * C + ct] = hmx;
+    if (rank == 0 && c >= 0) {
+      mins[(size_t)b * C + c] = hmn;
+      maxs[(size_t)b * C + c] = hmx;
     }
   }
   __syncthreads();
@@ -243,7 +226,7 @@ int log2_exact(int v) {
 }
 
 template <typename CodeT, bool kHeld>
-int launch_held(const float* x, const int* sel, CodeT* codes, __half* mins,
+int launch_held(const float* x, const int2* chans, CodeT* codes, __half* mins,
                 __half* maxs, int B, int R, int P, int C, int levels,
                 int group_log2, int cluster, int rows_per_block, int device,
                 cudaStream_t s) {
@@ -268,12 +251,12 @@ int launch_held(const float* x, const int* sel, CodeT* codes, __half* mins,
     if (err != cudaSuccess) return (int)err;
     ready[device] = true;
   }
-  return (int)cudaLaunchKernelEx(&cfg, kern, x, sel, codes, mins, maxs, R, P,
+  return (int)cudaLaunchKernelEx(&cfg, kern, x, chans, codes, mins, maxs, R, P,
                                  C, levels, group_log2, rows_per_block);
 }
 
 template <typename CodeT>
-int launch(const void* x, const void* sel, void* codes, void* mins,
+int launch(const void* x, const void* chans, void* codes, void* mins,
            void* maxs, int B, int R, int P, int C, int levels, int group,
            int cluster, int rows_per_block, int held, int device,
            void* stream) {
@@ -286,14 +269,14 @@ int launch(const void* x, const void* sel, void* codes, void* mins,
       (held && (long long)rows_per_block * group > (long long)kHold * kThreads))
     return (int)cudaErrorInvalidValue;
   const float* xf = (const float*)x;
-  const int* si = (const int*)sel;
+  const int2* ch = (const int2*)chans;
   cudaStream_t s = (cudaStream_t)stream;
   if (held)
-    return launch_held<CodeT, true>(xf, si, (CodeT*)codes, (__half*)mins,
+    return launch_held<CodeT, true>(xf, ch, (CodeT*)codes, (__half*)mins,
                                     (__half*)maxs, B, R, P, C, levels,
                                     group_log2, cluster, rows_per_block,
                                     device, s);
-  return launch_held<CodeT, false>(xf, si, (CodeT*)codes, (__half*)mins,
+  return launch_held<CodeT, false>(xf, ch, (CodeT*)codes, (__half*)mins,
                                    (__half*)maxs, B, R, P, C, levels,
                                    group_log2, cluster, rows_per_block, device,
                                    s);
@@ -301,24 +284,26 @@ int launch(const void* x, const void* sel, void* codes, void* mins,
 
 }  // namespace
 
-// x (B, R, P) f32; sel (C,) int32 or null (then P == C); codes (B, R, C)
-// uint8 (1..8 bits) or uint16 (9..16 bits); mins/maxs (B, C) f16. The plan
-// (group, cluster, rows_per_block, held) comes from
-// repro_torch/kernels/quantize.py::quantize_plan.
-extern "C" int baf_quantize_f32(const void* x, const void* sel, void* codes,
+// x (B, R, P) f32; chans (C, 2) int32 (output column, x column) in the
+// order the kernel takes them (repro_torch/kernels/quantize.py::
+// channel_order), or null to take channel k of x as output column k (then
+// P == C); codes (B, R, C) uint8 (1..8 bits) or uint16 (9..16 bits);
+// mins/maxs (B, C) f16. The plan (group, cluster, rows_per_block, held)
+// comes from repro_torch/kernels/quantize.py::quantize_plan.
+extern "C" int baf_quantize_f32(const void* x, const void* chans, void* codes,
                                 void* mins, void* maxs, int B, int R, int P,
                                 int C, int levels, int group, int cluster,
                                 int rows_per_block, int held, int device,
                                 void* stream) {
-  return launch<uint8_t>(x, sel, codes, mins, maxs, B, R, P, C, levels, group,
+  return launch<uint8_t>(x, chans, codes, mins, maxs, B, R, P, C, levels, group,
                          cluster, rows_per_block, held, device, stream);
 }
 
-extern "C" int baf_quantize_f32_u16(const void* x, const void* sel,
+extern "C" int baf_quantize_f32_u16(const void* x, const void* chans,
                                     void* codes, void* mins, void* maxs, int B,
                                     int R, int P, int C, int levels, int group,
                                     int cluster, int rows_per_block, int held,
                                     int device, void* stream) {
-  return launch<uint16_t>(x, sel, codes, mins, maxs, B, R, P, C, levels, group,
+  return launch<uint16_t>(x, chans, codes, mins, maxs, B, R, P, C, levels, group,
                           cluster, rows_per_block, held, device, stream);
 }

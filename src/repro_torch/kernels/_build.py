@@ -126,7 +126,7 @@ class CudaKernel:
         self.launches += 1
 
 
-_QUANTIZE_ARGS = [P, P, P, P, P,      # x, sel (nullable), codes, mins, maxs
+_QUANTIZE_ARGS = [P, P, P, P, P,      # x, chans (nullable), codes, mins, maxs
                   I, I, I, I, I,      # B, R, P, C, levels
                   I, I, I, I,         # plan: group, cluster, rows, held
                   I, P]               # device, stream
@@ -135,7 +135,8 @@ QUANTIZE = CudaKernel("quantize", "quantize.cu", {
     "baf_quantize_f32_u16": _QUANTIZE_ARGS,
 })
 _HISTOGRAM_ARGS = [P, P, I, I, I,     # codes, counts, K, C, nsym
-                   I, I, I,           # plan: group, cluster, rows
+                   I, I, I, I, I, I,  # plan: group, cluster, rows, unit,
+                                      # share, shared bytes
                    I, P]              # device, stream
 HISTOGRAM = CudaKernel("histogram", "histogram.cu", {
     "baf_histogram_u8": _HISTOGRAM_ARGS,

@@ -21,7 +21,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 
 MAX_NSYM = 4096                # bits <= 12
-MAX_GROUP = 4                  # channels a cluster counts
+MAX_GROUP = 4                  # channels a cluster counts (kMaxGroup)
 MAX_CLUSTER = 16               # blocks of a cluster (8 is the portable size)
 ROWS_PER_BLOCK = 512           # rows a block counts, about
 SMEM_MAX = 231_424             # dynamic shared memory of one H100 block:
@@ -31,10 +31,15 @@ SMEM_MAX = 231_424             # dynamic shared memory of one H100 block:
 class HistogramPlan(NamedTuple):
     """Launch plan of the histogram kernel: a cluster of ``cluster`` blocks
     for each group of ``group`` channels, each block counting
-    ``rows_per_block`` rows into ``smem_bytes`` of shared memory."""
+    ``rows_per_block`` rows and summing ``share`` units of ``unit`` bins
+    over the cluster, in ``smem_bytes`` of shared memory. The kernel takes
+    these values as they are and refuses a plan that does not cover the
+    rows and bins or that a block cannot hold."""
     group: int
     cluster: int
     rows_per_block: int
+    unit: int
+    share: int
     smem_bytes: int
 
 
@@ -42,12 +47,15 @@ def _pow2_ceil(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def _smem_bytes(group: int, nsym: int, cluster: int) -> int:
-    """One histogram of the group, and the bins a block sums as the
-    cluster's blocks store them (units of 16 bytes where nsym allows)."""
+def _plan(k: int, nsym: int, group: int, cluster: int) -> HistogramPlan:
+    """The plan for ``group`` channels by ``cluster`` blocks: the bins are
+    handed out in units of 16 bytes where nsym allows; a block's shared
+    memory holds one histogram of the group and the bins it sums as the
+    cluster's blocks store them."""
     unit = 4 if nsym % 4 == 0 else 1
     share = -(-(group * nsym // unit) // cluster)
-    return 4 * (group * nsym + cluster * share * unit)
+    smem = 4 * (group * nsym + cluster * share * unit)
+    return HistogramPlan(group, cluster, -(-k // cluster), unit, share, smem)
 
 
 def histogram_plan(k: int, c: int, nsym: int) -> HistogramPlan:
@@ -56,18 +64,16 @@ def histogram_plan(k: int, c: int, nsym: int) -> HistogramPlan:
     power of two up to 16, about ROWS_PER_BLOCK rows each; at most 8 where
     one block takes more than half an SM's shared memory. Both measured
     best on the H100 among 2-8 channels by 1-16 blocks at K = 4096 and
-    32768 (``tools/baf_kernel_times.py --variants``)."""
+    32768 (PERF.md)."""
     group = min(MAX_GROUP, _pow2_ceil(c))
     wanted = min(MAX_CLUSTER, _pow2_ceil(-(-k // ROWS_PER_BLOCK)))
     while True:
-        cluster = wanted
-        if _smem_bytes(group, nsym, cluster) > SMEM_MAX // 2:
-            cluster = min(cluster, 8)
-        smem = _smem_bytes(group, nsym, cluster)
-        if smem <= SMEM_MAX or group == 1:
-            break
+        plan = _plan(k, nsym, group, wanted)
+        if plan.smem_bytes > SMEM_MAX // 2 and plan.cluster > 8:
+            plan = _plan(k, nsym, group, 8)
+        if plan.smem_bytes <= SMEM_MAX or group == 1:
+            return plan
         group //= 2
-    return HistogramPlan(group, cluster, -(-k // cluster), smem)
 
 
 def histogram_plain(codes: torch.Tensor, nsym: int) -> torch.Tensor:
@@ -105,15 +111,12 @@ def histogram(codes: torch.Tensor, nsym: int) -> torch.Tensor:
     k, c = codes.shape
     if c == 0:
         return torch.empty((0, nsym), dtype=torch.int32, device=codes.device)
-    return launch_kernel(codes, nsym, histogram_plan(k, c, nsym))
+    return _launch(codes, nsym, histogram_plan(k, c, nsym))
 
 
-def launch_kernel(codes: torch.Tensor, nsym: int,
-                  plan: HistogramPlan) -> torch.Tensor:
-    """The kernel on codes ``histogram`` has checked, under ``plan``
-    (``histogram`` passes ``histogram_plan``'s; the tests and
-    ``tools/baf_kernel_times.py`` pass others). The kernel refuses a plan
-    that does not cover K or whose shared memory a block cannot have."""
+def _launch(codes: torch.Tensor, nsym: int,
+            plan: HistogramPlan) -> torch.Tensor:
+    """The kernel on codes ``histogram`` has checked, under ``plan``."""
     k, c = codes.shape
     entry = {torch.uint8: "baf_histogram_u8",
              torch.uint16: "baf_histogram_u16",
@@ -121,8 +124,7 @@ def launch_kernel(codes: torch.Tensor, nsym: int,
     counts = torch.empty((c, nsym), dtype=torch.int32, device=codes.device)
     dev, stream = _build.stream_args(codes)
     _build.HISTOGRAM.launch(entry, codes.data_ptr(), counts.data_ptr(), k, c,
-                            nsym, plan.group, plan.cluster,
-                            plan.rows_per_block, dev, stream)
+                            nsym, *plan, dev, stream)
     return counts
 
 

@@ -37,8 +37,7 @@ def quantize_plan(b: int, r: int, c: int) -> QuantizePlan:
     """Channels a cluster: a power of two, at most 8, no wider than C needs.
     Blocks a cluster: the fewest (a power of two up to 16) that hold R rows
     in registers; measured best on the H100 among 2-8 channels by 2-16
-    blocks at B = 1 and 8 (``tools/baf_kernel_times.py --variants``). Rows
-    a block."""
+    blocks at B = 1 and 8 (PERF.md). Rows a block."""
     group = min(MAX_GROUP, 1 << max(c - 1, 0).bit_length())
     cap = HOLD * THREADS // group                   # rows a block can hold
     cluster = min(MAX_CLUSTER, 1 << max(-(-r // cap) - 1, 0).bit_length())
@@ -57,8 +56,21 @@ def quantize_plain(x: torch.Tensor, bits: int,
     return quantize(x, qp), qp.mins.reshape(b, c), qp.maxs.reshape(b, c)
 
 
+def channel_order(sel_idx: torch.Tensor) -> torch.Tensor:
+    """The quantize kernel's channel table for ``sel_idx`` (C,): a (C, 2)
+    int32 tensor on sel_idx's device whose row k is (output column, column
+    of x), the rows sorted by column of x (equal columns by position), so
+    the channels a cluster reduces lie close together in a row of x.
+    Computed once per selection: the compression plan does so when it is
+    compiled."""
+    sel = sel_idx.to(torch.int64)
+    order = torch.argsort(sel, stable=True)
+    return torch.stack([order, sel[order]], 1).to(torch.int32).contiguous()
+
+
 def quantize_fused(x: torch.Tensor, bits: int,
-                   sel_idx: torch.Tensor | None = None):
+                   sel_idx: torch.Tensor | None = None, *,
+                   order: torch.Tensor | None = None):
     """Quantize the channels ``sel_idx`` of ``x`` with per-example side info.
 
     x: (B, R, P) float32, channel-last and contiguous. sel_idx: (C,) int32
@@ -66,6 +78,11 @@ def quantize_fused(x: torch.Tensor, bits: int,
     Returns (codes (B, R, C), mins (B, C) fp16, maxs (B, C) fp16); codes
     are uint8 for 1..8 bits and uint16 for 9..16, as ``core.quant``. An
     (example, channel) holding a NaN gets NaN side info and zero codes.
+
+    ``order``: ``channel_order(sel_idx)``, computed once by a caller that
+    quantizes the same selection again and again; the kernel then reads
+    only it. Without it the wrapper computes it on each call (a few more
+    device operations). The CPU path does not need it.
 
     On the card this is one launch (``quantize_plan``): a cluster of up to
     16 blocks per (example, group of up to 8 channels), each block holding
@@ -80,6 +97,8 @@ def quantize_fused(x: torch.Tensor, bits: int,
         raise ValueError(f"x must be (B, R, P), got shape {tuple(x.shape)}")
     if sel_idx is not None and sel_idx.dim() != 1:
         raise ValueError("sel_idx must be 1-D")
+    if order is not None and sel_idx is None:
+        raise ValueError("order is the channel table of a sel_idx")
     if x.device.type == "cpu":
         return quantize_plain(x, bits, sel_idx)
     if x.device.type != "cuda":
@@ -94,17 +113,25 @@ def quantize_fused(x: torch.Tensor, bits: int,
     c = p if sel_idx is None else sel_idx.numel()
     if b * r * c == 0:
         raise ValueError(f"empty input {tuple(x.shape)} has no min/max")
-    return launch_kernel(x, bits, sel_idx, quantize_plan(b, r, c))
+    if sel_idx is not None:
+        if order is None:
+            order = channel_order(sel_idx)
+        elif (order.shape != (c, 2) or order.dtype != torch.int32
+              or order.device != x.device or not order.is_contiguous()
+              or order.data_ptr() % 8):
+            raise ValueError("order must be channel_order(sel_idx): "
+                             "contiguous (C, 2) int32 on x's device")
+    return _launch(x, bits, order, quantize_plan(b, r, c))
 
 
-def launch_kernel(x: torch.Tensor, bits: int, sel_idx: torch.Tensor | None,
-                  plan: QuantizePlan):
-    """The kernel on inputs ``quantize_fused`` has checked, under ``plan``
-    (``quantize_fused`` passes ``quantize_plan``'s; the tests and
-    ``tools/baf_kernel_times.py`` pass others). The kernel refuses a plan
-    that does not cover R or holds more than HOLD values a thread."""
+def _launch(x: torch.Tensor, bits: int, order: torch.Tensor | None,
+            plan: QuantizePlan):
+    """The kernel on inputs ``quantize_fused`` has checked, with the
+    channel table ``order`` (``None``: every channel of x in order), under
+    ``plan``. The kernel refuses a plan that does not cover R or holds
+    more than HOLD values a thread."""
     b, r, p = x.shape
-    c = p if sel_idx is None else sel_idx.numel()
+    c = p if order is None else order.shape[0]
     wide = bits > 8
     codes = torch.empty((b, r, c), dtype=torch.uint16 if wide else torch.uint8,
                         device=x.device)
@@ -113,7 +140,7 @@ def launch_kernel(x: torch.Tensor, bits: int, sel_idx: torch.Tensor | None,
     dev, stream = _build.stream_args(x)
     _build.QUANTIZE.launch(
         "baf_quantize_f32_u16" if wide else "baf_quantize_f32", x.data_ptr(),
-        None if sel_idx is None else sel_idx.data_ptr(), codes.data_ptr(),
+        None if order is None else order.data_ptr(), codes.data_ptr(),
         mins.data_ptr(), maxs.data_ptr(), b, r, p, c, (1 << bits) - 1,
         plan.group, plan.cluster, plan.rows_per_block, int(plan.held), dev,
         stream)

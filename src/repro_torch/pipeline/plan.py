@@ -32,7 +32,7 @@ from repro_torch.core.split import (SplitStats, restore_codes,
 from repro_torch.core.tiling import tile_batch, tile_grid, untile_batch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.histogram import MAX_NSYM, histogram
-from repro_torch.kernels.quantize import quantize_fused
+from repro_torch.kernels.quantize import channel_order, quantize_fused
 from repro_torch.obs import hooks
 from repro_torch.pipeline.op import OperatingPoint
 
@@ -118,6 +118,7 @@ class CompressionPlan:
             raise ValueError(f"sel_idx reaches channel {int(sel.max())} of a "
                              f"{spec.params.cfg.split_p}-channel split")
         self._sel = torch.as_tensor(sel.astype(np.int32), device=self.device)
+        self._order = channel_order(self._sel)   # the quantize kernel's table
         wire.backend_wants_tiling(self.op.wire_backend)
 
     def to_device(self, x) -> torch.Tensor:
@@ -134,7 +135,8 @@ class CompressionPlan:
         b, h, w, p = z.shape
         with hooks.timed("pipeline.quantize"):
             codes, mins, maxs = quantize_fused(z.view(b, h * w, p),
-                                               self.op.bits, self._sel)
+                                               self.op.bits, self._sel,
+                                               order=self._order)
         return codes.view(b, h, w, self.op.c), mins, maxs
 
     def quantize(self, z) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -108,15 +108,15 @@ def test_quantize_kernel_edge_shapes(cuda, r, c):
 
 @pytest.mark.parametrize("r", [1, 7, 100])
 def test_quantize_kernel_cluster_wider_than_its_rows(cuda, r):
-    """A plan the wrapper does not pick, through ``launch_kernel``: 16
-    blocks a cluster over R < 16 rows (blocks without rows still send their
+    """A plan the wrapper does not pick, through ``_launch``: 16 blocks a
+    cluster over R < 16 rows (blocks without rows still send their
     partials) and over R not a multiple of 16."""
     rng = np.random.default_rng(r)
     x = torch.from_numpy(_x(rng, (2, r, 64), 1.0)).to(cuda)
     sel = torch.from_numpy(rng.permutation(64)[:20].astype(np.int32))
     sel = sel.to(cuda)
     plan = quant_kernel.QuantizePlan(8, 16, -(-r // 16), True)
-    got = quant_kernel.launch_kernel(x, 8, sel, plan)
+    got = quant_kernel._launch(x, 8, quant_kernel.channel_order(sel), plan)
     torch.cuda.synchronize()
     for g, w in zip(got, quantize_plain(x, 8, sel.long())):
         assert torch.equal(_bits(g), _bits(w))
@@ -125,31 +125,39 @@ def test_quantize_kernel_cluster_wider_than_its_rows(cuda, r):
 @pytest.mark.parametrize("bits", [8, 12])
 def test_quantize_kernel_channels_selected_twice(cuda, bits):
     """sel naming a channel of x more than once: each of its c gets the
-    same side info and codes, as the plain gather gives (the kernel ranks
-    equal indices by position)."""
+    same side info and codes, as the plain gather gives (the channel table
+    ranks equal indices by position)."""
     rng = np.random.default_rng(bits)
     x = torch.from_numpy(_x(rng, (2, 1000, 40), 1.0)).to(cuda)
     sel = torch.tensor([5, 17, 5, 39, 0, 17, 5, 22], dtype=torch.int32,
                        device=cuda)
     for plan in (quant_kernel.quantize_plan(2, 1000, 8),
                  quant_kernel.QuantizePlan(4, 16, 63, True)):
-        got = quant_kernel.launch_kernel(x, bits, sel, plan)
+        got = quant_kernel._launch(x, bits, quant_kernel.channel_order(sel),
+                                   plan)
         torch.cuda.synchronize()
         for g, w in zip(got, quantize_plain(x, bits, sel.long())):
             assert torch.equal(_bits(g), _bits(w))
 
 
-def test_kernels_refuse_plans_short_of_their_rows(cuda):
-    """A plan whose blocks do not cover every row is refused by the
+@pytest.mark.parametrize("short", ["rows", "bins", "shared memory"])
+def test_kernels_refuse_plans_short_of_their_rows(cuda, short):
+    """A plan whose blocks do not cover every row, every bin, or whose
+    shared memory does not hold what its bins need, is refused by the
     kernel's entry (KernelError), not run on part of the input."""
     x = torch.ones((1, 100, 8), device=cuda)
-    with pytest.raises(_build.KernelError):
-        quant_kernel.launch_kernel(x, 8, None,
-                                   quant_kernel.QuantizePlan(8, 4, 10, True))
+    if short == "rows":
+        with pytest.raises(_build.KernelError):
+            quant_kernel._launch(x, 8, None,
+                                 quant_kernel.QuantizePlan(8, 4, 10, True))
     codes = torch.zeros((100, 8), dtype=torch.uint8, device=cuda)
+    plan = hist_kernel._plan(100, 256, 4, 4)
+    plan = {"rows": plan._replace(rows_per_block=10),
+            "bins": plan._replace(share=plan.share - 1),
+            "shared memory": plan._replace(smem_bytes=plan.smem_bytes - 4),
+            }[short]
     with pytest.raises(_build.KernelError):
-        hist_kernel.launch_kernel(codes, 256,
-                                  hist_kernel.HistogramPlan(8, 4, 10, 0))
+        hist_kernel._launch(codes, 256, plan)
 
 
 def test_quantize_kernel_takes_every_channel_without_sel(cuda):
@@ -216,14 +224,14 @@ def test_histogram_kernel_hot_bins(cuda, dtype, kind, shape):
 @pytest.mark.parametrize("k", [3, 100])
 def test_histogram_kernel_cluster_wider_than_its_rows(cuda, dtype, nsym, k):
     """16 blocks a cluster over K < 16 rows, and over K not a multiple of
-    16, through ``launch_kernel``: blocks without rows still send their
-    (zero) bins."""
+    16, through ``_launch``: blocks without rows still send their (zero)
+    bins."""
     rng = np.random.default_rng(k)
     codes = torch.from_numpy(rng.integers(0, nsym, size=(k, 6))
                              .astype(dtype)).to(cuda)
-    group = 8 if nsym == 256 else 2
-    got = hist_kernel.launch_kernel(
-        codes, nsym, hist_kernel.HistogramPlan(group, 16, -(-k // 16), 0))
+    group = 4 if nsym == 256 else 2
+    plan = hist_kernel._plan(k, nsym, group, 16)
+    got = hist_kernel._launch(codes, nsym, plan)
     torch.cuda.synchronize()
     assert torch.equal(got, histogram_plain(codes, nsym))
 

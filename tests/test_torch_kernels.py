@@ -272,9 +272,10 @@ def test_histogram_plan_covers_rows_and_channels_once(k, c, nsym):
     memory."""
     plan = thist.histogram_plan(k, c, nsym)
     assert _cluster_ok(plan.cluster)
-    assert 1 <= plan.group <= 8 and plan.group & (plan.group - 1) == 0
-    unit = 4 if nsym % 4 == 0 else 1
-    share = -(-(plan.group * nsym // unit) // plan.cluster)
+    assert 1 <= plan.group <= thist.MAX_GROUP
+    assert plan.group & (plan.group - 1) == 0
+    unit, share = plan.unit, plan.share
+    assert unit == (4 if nsym % 4 == 0 else 1)
     # one histogram of the group, and the bins a block sums as every block
     # of the cluster stores them
     assert plan.smem_bytes == 4 * (plan.group * nsym
@@ -300,9 +301,9 @@ def test_histogram_plan_covers_rows_and_channels_once(k, c, nsym):
     (1, 65536, 1), (2, 16, 4), (1, 8192, 64), (1, 8193, 64)])
 def test_quantize_plan_covers_rows_and_channels_once(b, r, c):
     """The quantize kernel's launch plan: each (example, channel group) is
-    one cluster whose blocks split R exactly once; groups (channels ranked
-    by their index in x) take every channel once; a block that holds its
-    rows keeps at most HOLD values a thread."""
+    one cluster whose blocks split R exactly once; groups of the channel
+    table take every channel once; a block that holds its rows keeps at
+    most HOLD values a thread."""
     plan = tquant.quantize_plan(b, r, c)
     assert _cluster_ok(plan.cluster)
     assert 1 <= plan.group <= 8 and plan.group & (plan.group - 1) == 0
@@ -313,13 +314,35 @@ def test_quantize_plan_covers_rows_and_channels_once(b, r, c):
     assert plan.held == (rpb <= cap)
     if r * plan.group <= tquant.MAX_CLUSTER * tquant.HOLD * tquant.THREADS:
         assert plan.held                      # the docstring's limit
-    # the kernel's grouping: channel c takes slot below[c] - first of the
-    # group whose ranks [first, first + group) hold below[c], the count of
-    # channels before it by (index in x, position); duplicates included
-    sel = np.random.default_rng(c).integers(0, 256, size=c)
-    pos = np.arange(c)
-    below = np.array([np.sum((sel < sel[i]) | ((sel == sel[i]) & (pos < i)))
-                      for i in range(c)])
-    np.testing.assert_array_equal(np.sort(below), pos)
     groups = -(-c // plan.group)
     assert groups * plan.group >= c > (groups - 1) * plan.group
+
+
+@pytest.mark.parametrize("c", [1, 8, 33, 64, 256])
+def test_channel_order_sorts_sel_by_column_of_x(c):
+    """The quantize kernel's channel table: every output column once, each
+    beside its own column of x, the rows sorted by column of x (equal
+    columns, a channel selected twice, by position)."""
+    sel = np.random.default_rng(c).integers(0, 256, size=c)
+    table = tquant.channel_order(torch.from_numpy(sel.astype(np.int32)))
+    assert table.dtype == torch.int32 and table.shape == (c, 2)
+    assert table.is_contiguous()
+    out, col = table[:, 0].numpy(), table[:, 1].numpy()
+    np.testing.assert_array_equal(np.sort(out), np.arange(c))
+    np.testing.assert_array_equal(col, sel[out])
+    np.testing.assert_array_equal(
+        out, np.lexsort((np.arange(c), sel)))   # by column, then position
+
+
+def test_quantize_fused_takes_the_channel_table_on_cpu():
+    """The plan hands the wrapper the table it computed once; on the CPU
+    the plain version gives the same as without it, and a table without
+    a selection is refused."""
+    x = torch.from_numpy(_x(3, (2, 50, 24), 1.0, 0.0))
+    sel = torch.tensor([5, 17, 5, 3, 0, 22], dtype=torch.int32)
+    want = quantize_fused(x, 8, sel)
+    got = quantize_fused(x, 8, sel, order=tquant.channel_order(sel))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="order"):
+        quantize_fused(x, 8, order=tquant.channel_order(sel))
