@@ -18,7 +18,11 @@ package ``repro``. Phases, each printing lines before the last:
      version on the CPU, R=1 and 7 (also under a cluster of 16 blocks),
      R=4095, R=65536 beyond what the blocks hold, C=1, 8 and 33,
      sel_idx=None; histogram: one symbol everywhere, K=3 (also under a
-     cluster of 16 blocks), C=5 peaked); cdf at 8 and 12 bits; flash
+     cluster of 16 blocks), C=5 peaked; consolidate: NaN in the estimate,
+     NaN side info and both, NaN where the plain version has NaN and the
+     same bits elsewhere, with and without the plan's channel table); cdf
+     at 1, 8 and 12 bits, row-major and through the (S, C) view of a
+     (C, S) buffer as the cdf path reads and writes it; flash
      attention (f32 and bf16, causal or not, window, Sq < Sk, GQA 7 and 1,
      hd 16, 64 and 128, ragged S, the qwen2-7b prefill's shape; bf16 q, k,
      v sliced from one fused qkv tensor); the linear scan (rwkv with
@@ -35,7 +39,9 @@ package ``repro``. Phases, each printing lines before the last:
      checked against the plan compiled with fused=False (and bit for bit
      with cudnn.deterministic) and against the same path run on the CPU for
      the first request; then ``channel_histogram_cdf`` on each request's
-     decoded codes (the cdf kernel's path), exact against numpy;
+     decoded codes (the cdf kernel's path), exact against numpy, and its
+     device operations per request from the profiler: the histogram and
+     cdf kernels and three copies, nothing else;
   5. qwen2-7b at its full published config (28 layers, bf16, random
      weights from a seed): B=2, a 512-token prefill (flash kernel, 28
      launches), the KV cache filled token by token, 16 greedy decode steps;
@@ -51,7 +57,8 @@ package ``repro``. Phases, each printing lines before the last:
   8. times: each kernel's device time and device operations per call at
      its path's shapes (torch.profiler) beside its bound, its plain version
      and, where one PyTorch call computes the same function, that call; the
-     histogram also on the path's own codes; the linear scan twice, at the
+     histogram also on the path's own codes; cdf through the cdf path's
+     (C, S) views, row-major, and at S=4096; the linear scan twice, at the
      prefill's shape (its launches in the prefill) and at the ingest
      block's (``linear_scan/ingest_block``, its launches in the ingest).
 
@@ -76,7 +83,6 @@ BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, same sheet
 F32_FLOPS = 67e12                # float32 outside the tensor cores
 B, R, P, C, BITS = 8, 64 * 64, 256, 64, 8
 HIDDEN = 64                      # width of the BaF predictor
-CONSOLIDATE_ATOL = 1e-5          # the JAX kernel test's tolerance
 # The fused and fused=False restores run the same convolutions. With cuDNN's
 # default algorithms two runs need not agree to the bit, so the restores of
 # the main path are held at the CPU parity tests' 1e-4, and bit for bit when
@@ -86,7 +92,8 @@ RESTORE_TOL = 1e-4
 CPU_TOL = 1e-3
 # Kernel against plain version: flash 2e-5 (f32) and 3e-2 (bf16), the JAX
 # kernel tests' tolerances; the linear scan 1e-4 (float32 sums in another
-# order over 16-step chunks); cdf exact. Relative and absolute.
+# order over 16-step chunks); cdf exact; consolidate bit for bit, NaN where
+# the plain version has NaN. Relative and absolute.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SCAN_TOL = 1e-4
 # Full-width LMs. Each check runs twice. In float32 (the same weights
@@ -299,25 +306,50 @@ def check_kernels(dev) -> dict:
                        plan=histogram_plan_of(3, 256, 4, 16)),
         histogram_case(dev, peaked.to(dev), 4096, "u16 peaked, C=5"))
 
-    def consolidate_case(b, r, p, c, bits):
+    def consolidate_case(b, r, p, c, bits, nan=None, table=False):
+        """``nan``: "z" puts NaN in the estimate (selected and unselected
+        channels), "side" makes one (example, channel)'s min and max NaN,
+        "both" does both. ``table``: the plan's channel table given."""
         z = torch.randn((b, r, p), generator=gen).to(dev)
         sel = torch.randperm(p, generator=gen)[:c].to(torch.int32).to(dev)
         codes, mins, maxs = quantize_plain(z, bits, sel.long())
         est = z + 0.3 * torch.randn((b, r, p), generator=gen).to(dev)
+        if nan in ("z", "both"):
+            est[0, 11, sel[2]] = float("nan")
+            est[b - 1, :4, sel[c - 1]] = float("nan")
+            est[0, 3, :] = float("nan")        # a whole row, all channels
+        if nan in ("side", "both"):
+            mins[b - 1, c // 2] = maxs[b - 1, c // 2] = float("nan")
         want = consolidate_plain(est.clone(), codes, mins, maxs, bits,
                                  sel.long())
-        got = consolidate_fused(est.clone(), codes, mins, maxs, bits, sel)
+        kw = {"order": channel_order(sel)} if table else {}
+        got = consolidate_fused(est.clone(), codes, mins, maxs, bits, sel,
+                                **kw)
         sync(dev)
-        err = float((got - want).abs().max())
-        print(f"consolidate B={b} R={r} P={p} C={c} bits={bits}: max abs "
-              f"diff {err!r} (tolerance {CONSOLIDATE_ATOL})")
-        if not err <= CONSOLIDATE_ATOL:
+        nans = torch.isnan(want)
+        ok = bool(torch.equal(torch.isnan(got), nans)) and \
+            bits_equal(got[~nans].view(torch.int32),
+                       want[~nans].view(torch.int32)) and \
+            (nan is None) == (int(nans.sum()) == 0)
+        err = max_abs_diff([(got, want)])
+        print(f"consolidate B={b} R={r} P={p} C={c} bits={bits}"
+              f"{f' NaN in {nan}' if nan else ''}"
+              f"{' with the channel table' if table else ''}: "
+              f"{int(nans.sum())} NaN in the plain version, the kernel's at "
+              f"the same places and the same bits elsewhere: "
+              f"{'yes' if ok else 'NO'} (max abs diff {err!r})")
+        if not ok:
             raise AssertionError("consolidate kernel differs from plain")
         return err
 
     errs["consolidate"] = max(consolidate_case(B, R, P, C, BITS),
+                              consolidate_case(B, R, P, C, BITS, table=True),
                               consolidate_case(3, 1000, 40, 40, 3),
-                              consolidate_case(2, R, P, C, 12))
+                              consolidate_case(2, R, P, C, 12),
+                              consolidate_case(2, R, P, C, BITS, nan="z"),
+                              consolidate_case(2, R, P, C, BITS, nan="side"),
+                              consolidate_case(2, R, P, C, 12, nan="both",
+                                               table=True))
     return errs
 
 
@@ -406,11 +438,19 @@ def check_lm_kernels(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(7)
     errs = {"cdf": 0.0, "flash_attention": 0.0, "linear_scan": 0.0}
-    for bits, c in ((8, C), (12, C), (12, 5)):
-        counts = torch.randint(0, 1 << bits, (1 << bits, c), generator=gen,
+    for bits, c in ((8, C), (12, C), (12, 5), (1, 3)):
+        counts = torch.randint(0, 1 << 20, (1 << bits, c), generator=gen,
                                device=dev, dtype=torch.int32)
-        ok = bool(torch.equal(cdf(counts), cdf_plain(counts)))
-        print(f"cdf S={1 << bits} C={c}: {'exact' if ok else 'DIFFERS'}")
+        want = cdf_plain(counts)
+        # row-major (S, C) as the TPU kernel; the (S, C) view of a (C, S)
+        # buffer as the histogram writes it, into a (C, S) buffer as
+        # channel_histogram_cdf does
+        cols = counts.t().contiguous().t()
+        ok = bool(torch.equal(cdf(counts), want)) and bool(torch.equal(
+            cdf(cols, out=torch.empty((c, 1 << bits), dtype=torch.int32,
+                                      device=dev).t()), want))
+        print(f"cdf S={1 << bits} C={c}, row-major and through (C, S) "
+              f"views: {'exact' if ok else 'DIFFERS'}")
         if not ok:
             raise AssertionError("cdf kernel differs from plain version")
 
@@ -597,8 +637,10 @@ def check_consolidate_on_path(dev, model, baf, sel_idx, decoded) -> float:
     from repro_torch.core.split import restore_codes
     from repro_torch.kernels.consolidate import (consolidate_fused,
                                                  consolidate_plain)
+    from repro_torch.kernels.quantize import channel_order
 
     sel = torch.as_tensor(np.asarray(sel_idx, np.int32), device=dev)
+    order = channel_order(sel)                  # as the plan holds it
     codes = torch.from_numpy(np.ascontiguousarray(decoded.codes)).to(dev)
     mins = torch.from_numpy(decoded.mins).to(dev)
     maxs = torch.from_numpy(decoded.maxs).to(dev)
@@ -607,7 +649,7 @@ def check_consolidate_on_path(dev, model, baf, sel_idx, decoded) -> float:
     n, h, w, p = est.shape
     flat = est.view(n, h * w, p)
     args = (codes.view(n, h * w, C), mins.view(n, C), maxs.view(n, C), BITS)
-    got = consolidate_fused(flat.clone(), *args, sel)
+    got = consolidate_fused(flat.clone(), *args, sel, order=order)
     want = consolidate_plain(flat.clone(), *args, sel.long())
     sync(dev)
     ok = bits_equal(got, want)
@@ -732,7 +774,11 @@ def histogram_on_path_codes(dev, model, spec, imgs):
 
 def cdf_path(dev, decoded) -> dict:
     """``channel_histogram_cdf`` on each request's decoded codes, on the
-    card: the histogram and cdf kernels, exact against numpy."""
+    card: the histogram and cdf kernels, exact against numpy. Then the
+    device operations of one request, from the profiler: the two kernels
+    and the copies (codes up, counts and CDF down), nothing else."""
+    from torch.profiler import ProfilerActivity
+
     from repro_torch.kernels import _build
     from repro_torch.kernels.histogram import channel_histogram_cdf
 
@@ -753,6 +799,23 @@ def cdf_path(dev, decoded) -> dict:
             raise AssertionError(f"request {i}: counts or CDF differ")
     print("cdf path: counts and exclusive CDF equal numpy's for every "
           "request: yes")
+
+    def one():
+        channel_histogram_cdf(decoded.codes[0], BITS, device=dev)
+        sync(dev)
+    one()
+    rows, _ = _device_rows(one, [ProfilerActivity.CUDA])
+    copies = [(k, n) for _, k, n in rows if k.startswith("Memcpy")]
+    others = [(k, n) for _, k, n in rows if not k.startswith("Memcpy")]
+    n_ops = sum(n for _, _, n in rows)
+    print(f"cdf path device operations per request: {n_ops} (kernels "
+          f"{others}; copies {copies})")
+    kernels_ok = sorted(n for _, n in others) == [1, 1] and \
+        any("hist" in k for k, _ in others) and \
+        any("cdf" in k for k, _ in others)
+    if not (kernels_ok and sum(n for _, n in copies) == 3):
+        raise AssertionError("the cdf path is not two kernels and three "
+                             f"copies a request: {rows}")
     return launches
 
 
@@ -1164,15 +1227,21 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes) -> list:
     def consolidate_times(b):
         z = torch.randn((b, R, P), generator=gen).to(dev)
         sel = torch.randperm(P, generator=gen)[:C].to(torch.int32).to(dev)
-        codes, mins, maxs = quantize_fused(z, BITS, sel)
+        order = channel_order(sel)      # once per selection, as the plan
+        codes, mins, maxs = quantize_fused(z, BITS, sel, order=order)
         est = z + 0.3 * torch.randn((b, R, P), generator=gen).to(dev)
         sel64 = sel.long()
         ms = timed(lambda: consolidate_fused(est, codes, mins, maxs, BITS,
-                                             sel))
+                                             sel, order=order))
         plain = timed(lambda: consolidate_plain(est, codes, mins, maxs,
                                                 BITS, sel64))
-        nbytes = 2 * b * R * C * 4 + b * R * C + 2 * b * C * 2 + C * 4
-        return ms, plain, nbytes
+        # selected elements of z read and written once, codes, side info
+        # and the channel table read once
+        nbytes = 2 * b * R * C * 4 + b * R * C + 2 * b * C * 2 + C * 8
+        # 32-byte sectors of z that hold a selected channel, read and
+        # written
+        sectors = len(set((sel.cpu().numpy() * 4 // 32).tolist()))
+        return ms, plain, nbytes, 2 * b * R * sectors * 32
 
     q1 = quantize_times(1)
     q8 = quantize_times(B)
@@ -1197,32 +1266,59 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes) -> list:
         f"the edge CNN's z")
     rows.append(row("consolidate", "src/repro_torch/csrc/consolidate.cu",
                     "src/repro/kernels/consolidate.py:37", c8[0], c8[1],
-                    c8[2], None, f"main path B={B} R={R} P={P} C={C}"))
+                    c8[2], None, f"main path B={B} R={R} P={P} C={C}, the "
+                    f"plan's channel table; the kernel reads and writes "
+                    f"{c8[3]} bytes of 32-byte sectors of z"))
+    rows += time_cdf(dev, row, gen)
     rows += time_lm_kernels(dev, row, gen)
     return rows
 
 
-def time_lm_kernels(dev, row, gen) -> list:
-    """cdf at the cdf path's shape, flash at the qwen2-7b prefill's, the
-    linear scan at the rwkv6-3b prefill's and ingest block's."""
+def time_cdf(dev, row, gen) -> list:
+    """cdf at the cdf path's shape and layout, row-major, and at 12 bits."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
     from repro_torch.kernels.histogram import cdf, cdf_plain
-    from repro_torch.kernels.linear_scan import (_scratch_floats, linear_scan,
-                                                 linear_scan_plain)
 
     out = []
     nsym = 1 << BITS
     counts = torch.randint(0, 64, (nsym, C), generator=gen,
                            dtype=torch.int32).to(dev)
+    # the cdf path's layout: the (S, C) view of the histogram's (C, S)
+    # counts, into the (S, C) view of a (C, S) buffer
+    cols = counts.t().contiguous().t()
+    dst = torch.empty_like(cols)
     out.append(row("cdf", "src/repro_torch/csrc/cdf.cu",
                    "src/repro/kernels/histogram.py:104",
-                   timed(lambda: cdf(counts)), timed(lambda: cdf_plain(counts)),
-                   2 * nsym * C * 4,
-                   timed(lambda: torch.cumsum(counts, dim=0)),
-                   f"cdf path S={nsym} C={C}, library torch.cumsum"))
+                   timed(lambda: cdf(cols, out=dst)),
+                   timed(lambda: cdf_plain(cols)), 2 * nsym * C * 4,
+                   timed(lambda: torch.cumsum(cols, dim=0)),
+                   f"cdf path S={nsym} C={C} through (C, S) views, library "
+                   f"torch.cumsum"))
+    row("cdf", "", "", timed(lambda: cdf(counts)),
+        timed(lambda: cdf_plain(counts)), 2 * nsym * C * 4,
+        timed(lambda: torch.cumsum(counts, dim=0)),
+        f"S={nsym} C={C} row-major (S, C), library torch.cumsum")
+    big = torch.randint(0, 64, (4096, C), generator=gen,
+                        dtype=torch.int32).to(dev).t().contiguous().t()
+    row("cdf", "", "", timed(lambda: cdf(big)),
+        timed(lambda: cdf_plain(big)), 2 * 4096 * C * 4,
+        timed(lambda: torch.cumsum(big, dim=0)),
+        f"S=4096 (12 bits) C={C} through (C, S) views, library "
+        f"torch.cumsum")
+    return out
+
+
+def time_lm_kernels(dev, row, gen) -> list:
+    """flash at the qwen2-7b prefill's shape, the linear scan at the
+    rwkv6-3b prefill's and ingest block's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.linear_scan import (_scratch_floats, linear_scan,
+                                                 linear_scan_plain)
+
+    out = []
 
     b, s, h, kh, hd = QWEN_B, QWEN_PROMPT, 28, 4, 128
     g = torch.Generator(device=dev).manual_seed(3)

@@ -49,13 +49,15 @@ def restore_codes(baf, split, sel_idx, codes, mins, maxs, *, bits: int,
 
 @torch.no_grad()
 def restore_codes_fused(baf, split, sel_idx, codes, mins, maxs, *,
-                        bits: int) -> torch.Tensor:
+                        bits: int, order=None) -> torch.Tensor:
     """Same math as ``restore_codes(consolidation=True)``, with eq. (6) run
     by the consolidate kernel (its plain version for CPU tensors).
 
     The kernel clips the transmitted channels of the full estimate z~ in
     place, so the ``z~[..., sel_idx]`` gather and the scatter back are part
-    of the kernel. ``sel_idx`` is int32 on the device of ``codes``.
+    of the kernel. ``sel_idx`` is int32 on the device of ``codes``;
+    ``order`` is its ``channel_order`` table, computed once by the plan
+    (``None``: the kernel's wrapper computes it).
     """
     qp = QuantParams(mins, maxs, bits)
     z_hat_sel = dequantize(codes, qp)
@@ -65,7 +67,8 @@ def restore_codes_fused(baf, split, sel_idx, codes, mins, maxs, *,
     consolidate_fused(z_tilde.view(b, h * w, p),
                       codes.reshape(b, h * w, c).contiguous(),
                       mins.reshape(b, c).contiguous(),
-                      maxs.reshape(b, c).contiguous(), bits, sel_idx)
+                      maxs.reshape(b, c).contiguous(), bits, sel_idx,
+                      order=order)
     return z_tilde
 
 

@@ -143,14 +143,19 @@ HISTOGRAM = CudaKernel("histogram", "histogram.cu", {
     "baf_histogram_u16": _HISTOGRAM_ARGS,
     "baf_histogram_i32": _HISTOGRAM_ARGS,
 })
+_CONSOLIDATE_ARGS = [P, P, P, P, P,  # z (in place), codes, mins, maxs,
+                                     # channel table (nullable)
+                     I, I, I, I, I,  # B, R, P, C, levels
+                     I, I,           # plan: rows, row threads
+                     I, P]           # device, stream
 CONSOLIDATE = CudaKernel("consolidate", "consolidate.cu", {
-    # z (in place), codes, mins, maxs, sel, B, R, P, C, levels, device, stream
-    "baf_consolidate_f32": [P, P, P, P, P, I, I, I, I, I, I, P],
-    "baf_consolidate_f32_u16": [P, P, P, P, P, I, I, I, I, I, I, P],
+    "baf_consolidate_f32": _CONSOLIDATE_ARGS,
+    "baf_consolidate_f32_u16": _CONSOLIDATE_ARGS,
 })
 CDF = CudaKernel("cdf", "cdf.cu", {
-    # counts, cdf, S, C, device, stream
-    "baf_cdf_i32": [P, P, I, I, I, P],
+    # counts, cdf, S, C, counts' strides (S, C), cdf's strides (S, C),
+    # plan: warps a channel; device, stream
+    "baf_cdf_i32": [P, P, I, I, LL, LL, LL, LL, I, I, P],
 })
 _FLASH_ARGS = [P, P, P, P,            # q, k, v, o
                I, I, I, I, I, I,      # B, Sq, Sk, H, KH, hd

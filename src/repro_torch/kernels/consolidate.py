@@ -10,11 +10,38 @@ codes and the other channels are left as they are. Replaces the TPU kernel
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.baf import consolidate, scatter_consolidated
 from repro_torch.core.quant import QuantParams
 from repro_torch.kernels import _build
+from repro_torch.kernels.quantize import channel_order
+
+THREADS = 256                  # threads of a block
+ROWS_A_THREAD = 4              # rows a thread loads before it stores (kRows)
+MIN_BLOCKS = 264               # two blocks for each of the H100's 132 SMs
+INT32_MAX = 2**31 - 1
+
+
+class ConsolidatePlan(NamedTuple):
+    """Launch plan of the consolidate kernel: a block per (example, tile of
+    ``rows_per_block`` rows), ``row_threads`` threads across the channels
+    of a row (the others over rows). The kernel takes these values as they
+    are and refuses a plan that does not fit the shapes."""
+    rows_per_block: int
+    row_threads: int
+
+
+def consolidate_plan(b: int, r: int, c: int) -> ConsolidatePlan:
+    """Threads across a row: every channel, up to a block of them. Rows a
+    block: ROWS_A_THREAD for each thread, fewer where that leaves under
+    MIN_BLOCKS blocks."""
+    row_threads = min(c, THREADS)
+    rows = min(r, THREADS // row_threads * ROWS_A_THREAD)
+    tiles = -(-MIN_BLOCKS // max(b, 1))
+    return ConsolidatePlan(max(1, min(rows, r // tiles)), row_threads)
 
 
 def consolidate_plain(z: torch.Tensor, codes: torch.Tensor,
@@ -23,7 +50,8 @@ def consolidate_plain(z: torch.Tensor, codes: torch.Tensor,
     """z (B, R, P) f32 in place; codes (B, R, C); mins/maxs (B, C) f16.
 
     ``core.baf.consolidate`` + ``scatter_consolidated``: the same eq. (6)
-    as the ``fused=False`` restore.
+    as the ``fused=False`` restore. NaN in z or in the side info gives NaN,
+    as ``jnp.clip`` does.
     """
     qp = QuantParams(mins=mins[:, None, :], maxs=maxs[:, None, :], bits=bits)
     if sel_idx is None:
@@ -34,15 +62,27 @@ def consolidate_plain(z: torch.Tensor, codes: torch.Tensor,
 
 def consolidate_fused(z: torch.Tensor, codes: torch.Tensor,
                       mins: torch.Tensor, maxs: torch.Tensor, bits: int,
-                      sel_idx: torch.Tensor | None = None) -> torch.Tensor:
+                      sel_idx: torch.Tensor | None = None, *,
+                      order: torch.Tensor | None = None) -> torch.Tensor:
     """Clip ``z[..., sel_idx]`` to the received bins, in place; returns ``z``.
 
     z: (B, R, P) float32 contiguous; codes: (B, R, C) uint8 (1..8 bits)
     or uint16 (9..16 bits); mins/maxs: (B, C) fp16; sel_idx: (C,) int32
-    with distinct values in [0, P) (``None`` means C == P).
+    with distinct values in [0, P) (``None`` means C == P). A NaN in z or
+    in an (example, channel)'s side info gives NaN there.
+
+    ``order``: ``quantize.channel_order(sel_idx)``, the channel table in
+    address order that the compression plan computes once; without it the
+    wrapper computes it on each call. The CPU path does not need it.
+
+    On the card this is one launch (``consolidate_plan``): a block per
+    (example, tile of rows), a thread per channel and few rows, its
+    channel's step divided once.
     """
     if z.dim() != 3 or codes.dim() != 3 or mins.dim() != 2 or maxs.dim() != 2:
         raise ValueError("z/codes must be (B, R, *), mins/maxs (B, C)")
+    if order is not None and sel_idx is None:
+        raise ValueError("order is the channel table of a sel_idx")
     b, r, p = z.shape
     c = p if sel_idx is None else sel_idx.numel()
     if (tuple(codes.shape) != (b, r, c) or tuple(mins.shape) != (b, c)
@@ -66,11 +106,34 @@ def consolidate_fused(z: torch.Tensor, codes: torch.Tensor,
         if t.dtype != dtype or t.device != z.device or not t.is_contiguous():
             raise ValueError(f"expected contiguous {dtype} on {z.device}, got "
                              f"{t.dtype} on {t.device}")
+    if b > 65535 or r * p > INT32_MAX:
+        raise ValueError(f"consolidate kernel takes B <= 65535 and R * P < "
+                         f"2^31, got {tuple(z.shape)}")
+    if b * r * c == 0:
+        return z
+    if sel_idx is not None:
+        if order is None:
+            order = channel_order(sel_idx)
+        elif (order.shape != (c, 2) or order.dtype != torch.int32
+              or order.device != z.device or not order.is_contiguous()
+              or order.data_ptr() % 8):
+            raise ValueError("order must be channel_order(sel_idx): "
+                             "contiguous (C, 2) int32 on z's device")
+    return _launch(z, codes, mins, maxs, bits, order,
+                   consolidate_plan(b, r, c))
+
+
+def _launch(z, codes, mins, maxs, bits: int, order: torch.Tensor | None,
+            plan: ConsolidatePlan) -> torch.Tensor:
+    """The kernel on inputs ``consolidate_fused`` has checked, with the
+    channel table ``order`` (``None``: channel k is column k), under
+    ``plan``."""
+    b, r, p = z.shape
+    c = codes.shape[-1]
     dev, stream = _build.stream_args(z)
     _build.CONSOLIDATE.launch(
         "baf_consolidate_f32_u16" if bits > 8 else "baf_consolidate_f32",
-        z.data_ptr(), codes.data_ptr(),
-        mins.data_ptr(), maxs.data_ptr(),
-        None if sel_idx is None else sel_idx.data_ptr(), b, r, p, c,
-        (1 << bits) - 1, dev, stream)
+        z.data_ptr(), codes.data_ptr(), mins.data_ptr(), maxs.data_ptr(),
+        None if order is None else order.data_ptr(), b, r, p, c,
+        (1 << bits) - 1, *plan, dev, stream)
     return z

@@ -26,6 +26,8 @@ MAX_CLUSTER = 16               # blocks of a cluster (8 is the portable size)
 ROWS_PER_BLOCK = 512           # rows a block counts, about
 SMEM_MAX = 231_424             # dynamic shared memory of one H100 block:
                                # 227 KB less 1 KB left for the static part
+SEG_SYMBOLS = 256              # symbols a warp of the cdf kernel scans
+MAX_CDF_WARPS = 32             # warps of a cdf block (kMaxWarps)
 
 
 class HistogramPlan(NamedTuple):
@@ -128,17 +130,30 @@ def _launch(codes: torch.Tensor, nsym: int,
     return counts
 
 
-def channel_histogram(codes, bits: int) -> np.ndarray:
-    """Counts of a channel-last host code array (..., C) -> (C, 2^bits) int64."""
-    nsym = 1 << bits
+def _host_codes(codes, nsym: int) -> tuple[int, torch.Tensor | None]:
+    """Channel-last host codes (..., C) -> (C, the (K, C) CPU tensor the
+    kernel takes, or ``None`` when empty). uint8, uint16 and int32 go as
+    they are (copied only where not contiguous); any other type is clipped
+    to [-1, nsym] and sent as int32, so a value out of range, which the
+    kernel counts nowhere, never wraps into it."""
     arr = np.asarray(codes)
     if arr.ndim == 0:
         arr = arr.reshape(1, 1)
     c = arr.shape[-1]
     if arr.size == 0 or c == 0:
+        return c, None
+    flat = arr.reshape(-1, c)
+    if flat.dtype not in (np.uint8, np.uint16, np.int32):
+        flat = np.clip(flat.astype(np.int64), -1, nsym).astype(np.int32)
+    return c, torch.from_numpy(np.ascontiguousarray(flat))
+
+
+def channel_histogram(codes, bits: int) -> np.ndarray:
+    """Counts of a channel-last host code array (..., C) -> (C, 2^bits) int64."""
+    nsym = 1 << bits
+    c, flat = _host_codes(codes, nsym)
+    if flat is None:
         return np.zeros((c, nsym), np.int64)
-    flat = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, c),
-                                                 dtype=np.int32))
     return histogram(flat, nsym).numpy().astype(np.int64)
 
 
@@ -148,26 +163,69 @@ def cdf_plain(counts: torch.Tensor) -> torch.Tensor:
     return (torch.cumsum(c32, dim=0, dtype=torch.int32) - c32)
 
 
-def cdf(counts: torch.Tensor) -> torch.Tensor:
+def cdf_plan(s: int) -> int:
+    """Warps the cdf kernel gives a channel: one for each 256 symbols
+    (SEG_SYMBOLS, 8 a lane), so every lane holds its symbols in
+    registers after one load."""
+    return max(1, -(-s // SEG_SYMBOLS))
+
+
+def _cdf_layout(t: torch.Tensor) -> bool:
+    """(S, C) row-major, or the (S, C) view of a (C, S) buffer."""
+    return t.is_contiguous() or t.t().is_contiguous()
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the memory spans of two dense tensors meet."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and \
+        b0 < a0 + a.numel() * a.element_size()
+
+
+def cdf(counts: torch.Tensor, *, out: torch.Tensor | None = None
+        ) -> torch.Tensor:
     """Exclusive CDF along the symbol axis of (S, C) counts -> (S, C) int32.
 
     The TPU kernel's layout: symbols down the rows, one channel a column.
-    Exact in int32. On the card, counts are int32.
+    Exact in int32. On the card, counts are int32, and ``counts`` and
+    ``out`` are each (S, C) row-major or the (S, C) view ``buf.t()`` of a
+    (C, S) buffer, as the histogram writes counts; the kernel reads and
+    writes through their strides. ``out`` (optional, not overlapping
+    ``counts``) receives the CDF; without it the result takes the layout
+    of ``counts``. Returns ``out``.
     """
     if counts.dim() != 2:
         raise ValueError(f"counts must be (S, C), got {tuple(counts.shape)}")
+    if out is not None and (out.shape != counts.shape
+                            or out.dtype != torch.int32
+                            or out.device != counts.device):
+        raise ValueError(f"out must be int32 {tuple(counts.shape)} on "
+                         f"{counts.device}")
     if counts.device.type == "cpu":
-        return cdf_plain(counts)
+        want = cdf_plain(counts)
+        return want if out is None else out.copy_(want)
     if counts.device.type != "cuda":
         raise ValueError(f"no cdf kernel for device {counts.device}")
-    if counts.dtype != torch.int32 or not counts.is_contiguous():
-        raise ValueError("cdf kernel takes contiguous int32 counts, got "
-                         f"{counts.dtype}")
+    if out is None:
+        out = torch.empty_like(counts, dtype=torch.int32)
+    if counts.dtype != torch.int32 or not (_cdf_layout(counts)
+                                           and _cdf_layout(out)):
+        raise ValueError("cdf kernel takes int32 counts and output, each "
+                         "(S, C) row-major or the (S, C) view of a (C, S) "
+                         f"buffer; got {counts.dtype} strides "
+                         f"{counts.stride()} -> {out.stride()}")
+    if _overlap(counts, out):
+        raise ValueError("cdf: out overlaps counts")
     s, c = counts.shape
-    out = torch.empty_like(counts)
+    if s > MAX_CDF_WARPS * SEG_SYMBOLS:
+        raise ValueError(f"cdf kernel takes S <= "
+                         f"{MAX_CDF_WARPS * SEG_SYMBOLS}, got {s}")
+    if s * c == 0:
+        return out
     dev, stream = _build.stream_args(counts)
     _build.CDF.launch("baf_cdf_i32", counts.data_ptr(), out.data_ptr(), s, c,
-                      dev, stream)
+                      *counts.stride(), *out.stride(), cdf_plan(s), dev,
+                      stream)
     return out
 
 
@@ -175,18 +233,19 @@ def channel_histogram_cdf(codes, bits: int, *,
                           device=None) -> tuple[np.ndarray, np.ndarray]:
     """Counts and exclusive CDF of channel-last codes (..., C), both (C, S)
     int64 on the host, computed by the histogram and cdf kernels on
-    ``device`` (``None`` = the card; ``"cpu"`` runs the plain versions)."""
+    ``device`` (``None`` = the card; ``"cpu"`` runs the plain versions).
+
+    On the card: one upload of the codes (uint8 and uint16 as they are),
+    the two kernels, the cdf reading the histogram's (C, S) counts and
+    writing a (C, S) buffer through their transposed views, and one copy
+    back of each."""
     nsym = 1 << bits
-    arr = np.asarray(codes)
-    if arr.ndim == 0:
-        arr = arr.reshape(1, 1)
-    c = arr.shape[-1]
-    if arr.size == 0 or c == 0:
+    c, flat = _host_codes(codes, nsym)
+    if flat is None:
         z = np.zeros((c, nsym), np.int64)
         return z, z.copy()
-    flat = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, c),
-                                                 dtype=np.int32))
     counts = histogram(flat.to(resolve_device(device)), nsym)   # (C, S)
-    cum = cdf(counts.t().contiguous())                          # (S, C)
+    cum = torch.empty_like(counts)                              # (C, S)
+    cdf(counts.t(), out=cum.t())
     return (counts.cpu().numpy().astype(np.int64),
-            cum.t().cpu().numpy().astype(np.int64))
+            cum.cpu().numpy().astype(np.int64))

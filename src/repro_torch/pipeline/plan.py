@@ -118,7 +118,7 @@ class CompressionPlan:
             raise ValueError(f"sel_idx reaches channel {int(sel.max())} of a "
                              f"{spec.params.cfg.split_p}-channel split")
         self._sel = torch.as_tensor(sel.astype(np.int32), device=self.device)
-        self._order = channel_order(self._sel)   # the quantize kernel's table
+        self._order = channel_order(self._sel)   # the kernels' table
         wire.backend_wants_tiling(self.op.wire_backend)
 
     def to_device(self, x) -> torch.Tensor:
@@ -252,7 +252,8 @@ class CompressionPlan:
             if self.fused:
                 return restore_codes_fused(self.spec.baf_params, split,
                                            self._sel, codes, mins, maxs,
-                                           bits=self.op.bits)
+                                           bits=self.op.bits,
+                                           order=self._order)
             return restore_codes(self.spec.baf_params, split, self._sel,
                                  codes, mins, maxs, bits=self.op.bits,
                                  consolidation=self.consolidation)

@@ -8,10 +8,10 @@ with an H100:
 
 Tolerances: quantize codes and side info, histogram counts and the CDF
 must be exact (NaN side info at the same places, -0.0 and +0.0 told
-apart); consolidation is held
-bit-identical (the kernel keeps the reference's operation order, built with
--fmad=false). Flash attention: atol/rtol 2e-5 in float32 and 3e-2 in bf16
-(the JAX kernel tests' tolerances; the kernel sums in another order and
+apart); consolidation is held bit-identical (the kernel keeps the
+reference's operation order, built with -fmad=false), with NaN where the
+plain version has NaN. Flash attention: atol/rtol 2e-5 in float32 and 3e-2
+in bf16 (the JAX kernel tests' tolerances; the kernel sums in another order and
 rounds its output to bf16 once, as the plain version does; in bf16 it
 feeds P to the tensor cores as a high and a low bf16 part). Linear scan: 1e-4 (float32 sums in
 another order over 16-step chunks), NaN where the plain version has NaN.
@@ -270,6 +270,145 @@ def test_consolidate_kernel_matches_plain(cuda, bits, shape, c):
     got = consolidate_fused(est.clone(), codes, mins, maxs, bits, sel)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _same_bits_or_nan(got, want):
+    """NaN at the same places, the same bits everywhere else."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("bits", [8, 12])           # uint8 and uint16 codes
+@pytest.mark.parametrize("case", ["z", "side", "both"])
+@pytest.mark.parametrize("table", ["given", "omitted"])
+def test_consolidate_kernel_propagates_nan(cuda, case, bits, table):
+    """NaN in z~ with finite side info, NaN side info (min and max, as the
+    quantizer writes them), or both: NaN where the plain version
+    (torch.maximum/minimum, like jnp.clip) has NaN, the same bits
+    elsewhere; with the plan's channel table given or computed by the
+    wrapper."""
+    rng = np.random.default_rng(6)
+    b, r, p, c = 2, 300, 64, 20
+    z = torch.from_numpy(_x(rng, (b, r, p), 1.5)).to(cuda)
+    sel = torch.from_numpy(rng.permutation(p)[:c].astype(np.int32)).to(cuda)
+    codes, mins, maxs = quantize_plain(z, bits, sel.long())
+    est = z + torch.from_numpy(_x(rng, (b, r, p), 0.4)).to(cuda)
+    if case in ("z", "both"):
+        est[0, 17, sel[3]] = float("nan")
+        est[1, :5, sel[11]] = float("nan")
+        est[1, 9, sel[7]] = float("nan")      # where the side info is NaN
+        est[0, 4, int(np.setdiff1d(np.arange(p), sel.cpu())[0])] = \
+            float("nan")                         # an unselected channel
+    if case in ("side", "both"):
+        mins[1, 7] = maxs[1, 7] = float("nan")
+    want = consolidate_plain(est.clone(), codes, mins, maxs, bits,
+                             sel.long())
+    kw = {"order": quant_kernel.channel_order(sel)} if table == "given" \
+        else {}
+    got = consolidate_fused(est.clone(), codes, mins, maxs, bits, sel, **kw)
+    torch.cuda.synchronize()
+    assert int(torch.isnan(want).sum()) == \
+        {"z": 8, "side": r, "both": r + 7}[case]
+    _same_bits_or_nan(got, want)
+
+
+@pytest.mark.parametrize("bits", [3, 8, 12, 16])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("r", [1, 7, 4095])
+@pytest.mark.parametrize("c", [1, 33, 64, 256])
+def test_consolidate_kernel_edge_shapes(cuda, c, r, b, bits):
+    """C of one channel, not a multiple of a warp, the path's 64 and all P
+    (with sel_idx=None and with a full permutation); R of one row, of 7,
+    and not a multiple of the plan's tile; B of one and eight; codes of
+    3, 8, 12 and 16 bits. Bit-identical to the plain version, with the
+    channel table given and omitted."""
+    p = 256
+    gen = torch.Generator().manual_seed(c * 131 + r * 7 + b + bits)
+    z = (torch.randn((b, r, p), generator=gen) * 2.0).to(cuda)
+    noise = (torch.randn((b, r, p), generator=gen) * 0.3).to(cuda)
+    sels = [torch.randperm(p, generator=gen)[:c].to(torch.int32).to(cuda)]
+    if c == p:
+        sels.append(None)
+    for sel in sels:
+        sel64 = None if sel is None else sel.long()
+        codes, mins, maxs = quantize_plain(z, bits, sel64)
+        est = z + noise
+        want = consolidate_plain(est.clone(), codes, mins, maxs, bits, sel64)
+        tables = [{}] if sel is None else \
+            [{}, {"order": quant_kernel.channel_order(sel)}]
+        for kw in tables:
+            got = consolidate_fused(est.clone(), codes, mins, maxs, bits, sel,
+                                    **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_consolidate_refuses_a_wrong_channel_table(cuda):
+    z = torch.zeros((1, 8, 16), device=cuda)
+    sel = torch.arange(4, dtype=torch.int32, device=cuda)
+    codes = torch.zeros((1, 8, 4), dtype=torch.uint8, device=cuda)
+    side = torch.zeros((1, 4), dtype=torch.float16, device=cuda)
+    before = _build.CONSOLIDATE.launches
+    for bad in (quant_kernel.channel_order(sel)[:3],
+                quant_kernel.channel_order(sel).long(),
+                quant_kernel.channel_order(sel).t()):
+        with pytest.raises(ValueError, match="order"):
+            consolidate_fused(z, codes, side, side, 8, sel, order=bad)
+    assert _build.CONSOLIDATE.launches == before
+
+
+@pytest.mark.parametrize("s", [2, 256, 4096])
+@pytest.mark.parametrize("c", [1, 5, 64])
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+@pytest.mark.parametrize("out_layout", ["rows", "cols"])
+def test_cdf_kernel_layouts(cuda, s, c, layout, out_layout):
+    """Counts (S, C) row-major or the (S, C) view of a (C, S) buffer (the
+    histogram's layout), into either; exact against the plain version,
+    sums that wrap int32 included (S = 4096 counts up to 2^20)."""
+    rng = np.random.default_rng(s * 7 + c)
+    counts = torch.from_numpy(rng.integers(0, 1 << 20, size=(s, c))
+                              .astype(np.int32)).to(cuda)
+    if layout == "cols":
+        counts = counts.t().contiguous().t()
+    out = torch.full((s, c), -1, dtype=torch.int32, device=cuda) \
+        if out_layout == "rows" else \
+        torch.full((c, s), -1, dtype=torch.int32, device=cuda).t()
+    before = _build.CDF.launches
+    got = cdf(counts, out=out)
+    torch.cuda.synchronize()
+    assert got is out and _build.CDF.launches == before + 1
+    assert torch.equal(got, cdf_plain(counts))
+    assert torch.equal(cdf(counts), cdf_plain(counts))
+
+
+def test_cdf_refuses_layouts_it_does_not_take(cuda):
+    counts = torch.ones((512, 8), dtype=torch.int32, device=cuda)
+    before = _build.CDF.launches
+    with pytest.raises(ValueError, match="layout|row-major"):
+        cdf(counts[::2])                       # symbols two rows apart
+    with pytest.raises(ValueError, match="overlaps"):
+        cdf(counts, out=counts)
+    with pytest.raises(ValueError, match="S <="):
+        cdf(torch.ones((8193, 2), dtype=torch.int32, device=cuda))
+    assert _build.CDF.launches == before
+
+
+@pytest.mark.parametrize("bits,dtype", [(8, np.uint8), (12, np.uint16),
+                                        (4, np.int64)])
+def test_channel_histogram_cdf_on_the_card(cuda, bits, dtype):
+    """The cdf path on the card: one histogram and one cdf launch, counts
+    and CDF equal to the plain versions on the CPU."""
+    codes = np.random.default_rng(bits).integers(
+        0, 1 << bits, size=(1, 64, 64, 64)).astype(dtype)
+    before = (_build.HISTOGRAM.launches, _build.CDF.launches)
+    got = hist_kernel.channel_histogram_cdf(codes, bits, device=cuda)
+    assert (_build.HISTOGRAM.launches, _build.CDF.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = hist_kernel.channel_histogram_cdf(codes, bits, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("bits", [8, 12])

@@ -25,7 +25,7 @@ from repro_torch.core import quant as tq
 from repro_torch.kernels.consolidate import consolidate_fused
 from repro_torch.kernels import histogram as thist
 from repro_torch.kernels import quantize as tquant
-from repro_torch.kernels.histogram import (cdf, channel_histogram,
+from repro_torch.kernels.histogram import (cdf, cdf_plain, channel_histogram,
                                           channel_histogram_cdf, histogram)
 from repro_torch.kernels.quantize import quantize_fused
 
@@ -167,6 +167,104 @@ def test_channel_histogram_cdf_matches_jax(bits):
     empty = channel_histogram_cdf(np.empty((0, 3), np.int32), 4,
                                   device="cpu")
     assert [e.shape for e in empty] == [(3, 16), (3, 16)]
+
+
+@pytest.mark.parametrize("s,c", [(2, 1), (256, 64), (4096, 5)])
+@pytest.mark.parametrize("out_layout", ["rows", "cols", None])
+def test_cdf_on_transposed_views_matches_pallas(s, c, out_layout):
+    """The cdf path's layout: the (S, C) view of the histogram's (C, S)
+    counts, the CDF written through the (S, C) view of a (C, S) buffer
+    (or a row-major one, or a new tensor)."""
+    counts_cs = np.random.default_rng(s + c).integers(
+        0, 1 << 12, size=(c, s)).astype(np.int32)
+    view = torch.from_numpy(counts_cs).t()
+    assert not view.is_contiguous() or s == 1 or c == 1
+    out = {"rows": torch.full((s, c), -7, dtype=torch.int32),
+           "cols": torch.full((c, s), -7, dtype=torch.int32).t(),
+           None: None}[out_layout]
+    got = cdf(view, out=out)
+    assert out is None or got is out
+    want = np.asarray(cdf_pallas(jnp.asarray(counts_cs.T), interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cdf_refuses_an_output_of_another_shape():
+    with pytest.raises(ValueError, match="out must be"):
+        cdf(torch.zeros((8, 3), dtype=torch.int32),
+            out=torch.zeros((3, 8), dtype=torch.int32))
+
+
+def _cdf_kernel_model(counts, warps):
+    """numpy model of csrc/cdf.cu for one channel: warp w scans symbols
+    [256 w, 256 w + 256), lane l holds 8 from 256 w + 8 l; lane-local
+    exclusive sums, shuffle scan of the 32 lane totals, totals of the warps
+    before, all in uint32 (wrapping as int32 does)."""
+    s = counts.shape[0]
+    v = np.zeros(warps * thist.SEG_SYMBOLS, np.uint32)
+    v[:s] = counts.astype(np.uint32)
+    v = v.reshape(warps, 32, 8)
+    lane_tot = v.sum(2, dtype=np.uint32)
+    in_lane = np.cumsum(v, 2, dtype=np.uint32) - v
+    in_warp = np.cumsum(lane_tot, 1, dtype=np.uint32) - lane_tot
+    warp_tot = lane_tot.sum(1, dtype=np.uint32)
+    before = np.cumsum(warp_tot, dtype=np.uint32) - warp_tot
+    out = in_lane + in_warp[:, :, None] + before[:, None, None]
+    return out.reshape(-1)[:s].view(np.int32)
+
+
+@pytest.mark.parametrize("s", [1, 2, 7, 255, 256, 257, 4096, 8192])
+def test_cdf_plan_covers_the_symbols(s):
+    """The warps a channel takes cover S in 256-symbol segments, within a
+    block's 32; the kernel's decomposition under that plan gives
+    cumsum - counts exactly, the wrap of int32 included."""
+    warps = thist.cdf_plan(s)
+    assert 1 <= warps <= thist.MAX_CDF_WARPS
+    assert (warps - 1) * thist.SEG_SYMBOLS < s <= warps * thist.SEG_SYMBOLS
+    counts = np.random.default_rng(s).integers(0, 1 << 30, size=s,
+                                               dtype=np.int64).astype(np.int32)
+    want = cdf_plain(torch.from_numpy(counts)[:, None]).numpy()[:, 0]
+    np.testing.assert_array_equal(_cdf_kernel_model(counts, warps), want)
+
+
+@pytest.mark.parametrize("bits,dtype", [(3, np.uint8), (8, np.uint8),
+                                        (12, np.uint16)])
+def test_channel_histogram_cdf_uint_codes_match_jax(bits, dtype):
+    """uint8 and uint16 codes reach the kernel as they are (no widening on
+    the host); counts and CDF as the JAX package's."""
+    codes = np.random.default_rng(bits).integers(
+        0, 1 << bits, size=(3, 20, 6)).astype(dtype)
+    c, flat = thist._host_codes(codes, 1 << bits)
+    assert c == 6 and flat.dtype == torch.from_numpy(codes).dtype
+    got = channel_histogram_cdf(codes, bits, device="cpu")
+    want = jax_channel_histogram_cdf(codes, bits, interpret=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.int64 and g.shape == (6, 1 << bits)
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int64, np.uint32])
+def test_channel_histogram_cdf_counts_out_of_range_nowhere(dtype):
+    """Other integer types are sent as int32 after a clip to [-1, nsym]:
+    negative values and values >= nsym (2^32 + 3 too, which a cast to
+    int32 would wrap to 3) are counted nowhere."""
+    bits, nsym = 4, 16
+    rng = np.random.default_rng(11)
+    vals = rng.integers(0, nsym, size=(50, 3)).astype(np.int64)
+    bad = {np.int8: [-1, -128, 16, 127], np.int16: [-1, -300, 16, 9000],
+           np.int64: [-1, 16, 2**32 + 3, -(2**40)],
+           np.uint32: [16, 2**31, 2**32 - 1, 99]}[dtype]
+    codes = vals.copy()
+    codes[:4, 1] = bad
+    codes = codes.astype(dtype)
+    c, flat = thist._host_codes(codes, nsym)
+    assert flat.dtype == torch.int32
+    counts, cum = channel_histogram_cdf(codes, bits, device="cpu")
+    keep = codes.astype(np.int64)
+    want = np.stack([np.bincount(col[(col >= 0) & (col < nsym)],
+                                 minlength=nsym) for col in keep.T])
+    np.testing.assert_array_equal(counts, want)
+    np.testing.assert_array_equal(cum, np.cumsum(want, 1) - want)
+    np.testing.assert_array_equal(channel_histogram(codes, bits), want)
 
 
 @pytest.mark.parametrize("bits", [10, 16])

@@ -16,8 +16,15 @@ shapes ``chip_smoke.py`` times them:
     the path's own codes: the quantize kernel's codes of the edge CNN's z
     (the paper's geometry, seeded random weights and image, as
     ``chip_smoke.py`` builds them);
-  - consolidate at B=8; cdf, flash attention and the linear scan (prefill
-    and ingest block) through ``chip_smoke.time_lm_kernels``.
+  - consolidate at B=8 (with the channel table computed once, where ROOT's
+    wrapper takes one);
+  - cdf at S=256, C=64 on row-major (S, C) counts, the layout every ROOT
+    takes, and through the (S, C) views of (C, S) buffers where ROOT's
+    wrapper takes them (the cdf path's layout); then one request of the
+    cdf path, ``channel_histogram_cdf`` on the path's codes: its device
+    time and device operations;
+  - flash attention and the linear scan (prefill and ingest block) through
+    ``chip_smoke.time_lm_kernels``.
 
 So two checkouts can be compared on one card, with one way of reading the
 profiler, by running this script in turns, e.g. with the parent unpacked
@@ -31,10 +38,15 @@ under ``build/parent``::
 ``--phases`` instead times probes of this checkout's quantize and
 histogram kernels at the path's shapes, each built to stop after one of
 its phases (their outputs are wrong; they only split the time).
+``--plans`` times this checkout's consolidate kernel at B=1 and B=8 under
+tiles of 4 to 128 rows, beside the plan the wrapper picks, and the
+whole-row probe ``tools/consolidate_rows.cu`` (a warp per row, read as
+float4) that the kernel's design was timed against.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import sys
 from pathlib import Path
 
@@ -66,16 +78,22 @@ def report(label, fn):
     return ms
 
 
+def takes(fn, keyword: str) -> bool:
+    return keyword in inspect.signature(fn).parameters
+
+
 def time_checkout(dev) -> None:
     import torch
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels.consolidate import consolidate_fused
-    from repro_torch.kernels.histogram import histogram
+    from repro_torch.kernels.histogram import (cdf, channel_histogram_cdf,
+                                               histogram)
     gen = torch.Generator().manual_seed(1)
     sel = torch.randperm(cs.P, generator=gen)[:cs.C].to(torch.int32).to(dev)
     # a checkout whose wrapper takes the channel table gets it once
     kw = {"order": quant.channel_order(sel)} \
         if hasattr(quant, "channel_order") else {}
+    ckw = kw if takes(consolidate_fused, "order") else {}
     for b in (1, cs.B):
         x = torch.randn((b, cs.R, cs.P), generator=gen).to(dev)
         report(f"quantize B={b} R={cs.R} P={cs.P} C={cs.C}",
@@ -85,14 +103,28 @@ def time_checkout(dev) -> None:
                               dtype=torch.uint8).to(dev)
         report(f"histogram K={k} C={cs.C} uniform",
                lambda: histogram(codes, 256))
-    codes = path_codes(dev)
+    pcodes = path_codes(dev)
     report(f"histogram K={cs.R} C={cs.C} path codes",
-           lambda: histogram(codes, 256))
+           lambda: histogram(pcodes, 256))
     z = torch.randn((cs.B, cs.R, cs.P), generator=gen).to(dev)
     codes, mins, maxs = quant.quantize_fused(z, cs.BITS, sel)
     est = z + 0.3 * torch.randn((cs.B, cs.R, cs.P), generator=gen).to(dev)
-    report(f"consolidate B={cs.B} R={cs.R} P={cs.P} C={cs.C}",
-           lambda: consolidate_fused(est, codes, mins, maxs, cs.BITS, sel))
+    report(f"consolidate B={cs.B} R={cs.R} P={cs.P} C={cs.C}"
+           f"{' with the channel table' if ckw else ''}",
+           lambda: consolidate_fused(est, codes, mins, maxs, cs.BITS, sel,
+                                     **ckw))
+    nsym = 1 << cs.BITS
+    counts = torch.randint(0, 64, (nsym, cs.C), generator=gen,
+                           dtype=torch.int32).to(dev)
+    report(f"cdf S={nsym} C={cs.C} row-major", lambda: cdf(counts))
+    if takes(cdf, "out"):
+        cols = counts.t().contiguous().t()
+        dst = torch.empty_like(cols)
+        report(f"cdf S={nsym} C={cs.C} through (C, S) views",
+               lambda: cdf(cols, out=dst))
+    host = pcodes.cpu().numpy()
+    report("cdf path, one request: channel_histogram_cdf on the path's "
+           "codes", lambda: channel_histogram_cdf(host, cs.BITS, device=dev))
 
     def row(name, src, replaces, kernel, plain, nbytes, library, note,
             **_):
@@ -197,6 +229,57 @@ def time_phases(dev) -> None:
         _build.QUANTIZE, _build.HISTOGRAM = kept
 
 
+def time_plans(dev) -> None:
+    """The consolidate kernel at C=64 and 16, B=1 and 8, under tiles of 4
+    to 128 rows (threads across a row: every channel), and the whole-row
+    probe ``tools/consolidate_rows.cu`` at 8 and 16 rows a block; each
+    held bit for bit against the plain version first; two rounds."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import consolidate as cons
+    from repro_torch.kernels.quantize import channel_order, quantize_fused
+    rows_k = _build.CudaKernel("consolidate_rows",
+                               str(ROOT / "tools" / "consolidate_rows.cu"),
+                               _build.CONSOLIDATE.entries)
+    rows_k.finish_build()
+    kept = _build.CONSOLIDATE
+    gen = torch.Generator().manual_seed(5)
+    for c in (cs.C, 16):
+        sel = torch.randperm(cs.P, generator=gen)[:c].to(torch.int32).to(dev)
+        order = channel_order(sel)
+        for rnd in range(2):
+            for b in (1, cs.B):
+                z = torch.randn((b, cs.R, cs.P), generator=gen).to(dev)
+                codes, mins, maxs = quantize_fused(z, cs.BITS, sel,
+                                                   order=order)
+                est = z + 0.3 * torch.randn((b, cs.R, cs.P),
+                                            generator=gen).to(dev)
+                want = cons.consolidate_plain(est.clone(), codes, mins, maxs,
+                                              cs.BITS, sel.long())
+                picked = cons.consolidate_plan(b, cs.R, c)
+                runs = [(kept, cons.ConsolidatePlan(rows, c), "")
+                        for rows in (4, 8, 16, 32, 64, 128)]
+                runs += [(rows_k, cons.ConsolidatePlan(rows, c), "whole rows ")
+                         for rows in (8, 16)]
+                for kernel, plan, what in runs:
+                    _build.CONSOLIDATE = kernel
+                    try:
+                        got = cons._launch(est.clone(), codes, mins, maxs,
+                                           cs.BITS, order, plan)
+                        if not torch.equal(got.view(torch.int32),
+                                           want.view(torch.int32)):
+                            raise SystemExit(f"{what}{plan} differs from "
+                                             "the plain version")
+                        mark = " (picked)" if plan == picked and not what \
+                            else ""
+                        report(f"consolidate {what}C={c} B={b} plan "
+                               f"{tuple(plan)}{mark} (round {rnd})",
+                               lambda: cons._launch(est, codes, mins, maxs,
+                                                    cs.BITS, order, plan))
+                    finally:
+                        _build.CONSOLIDATE = kept
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=Path, default=ROOT,
@@ -204,6 +287,9 @@ def main() -> int:
     ap.add_argument("--phases", action="store_true",
                     help="time this checkout's kernels stopped after each "
                          "phase")
+    ap.add_argument("--plans", action="store_true",
+                    help="time this checkout's consolidate kernel under "
+                         "other tiles of rows, and the whole-row probe")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -218,6 +304,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.phases:
         time_phases(dev)
+    elif args.plans:
+        time_plans(dev)
     else:
         time_checkout(dev)
     return 0
