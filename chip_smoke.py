@@ -1236,8 +1236,8 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes) -> list:
         plain = timed(lambda: consolidate_plain(est, codes, mins, maxs,
                                                 BITS, sel64))
         # selected elements of z read and written once, codes, side info
-        # and the channel table read once
-        nbytes = 2 * b * R * C * 4 + b * R * C + 2 * b * C * 2 + C * 8
+        # and sel read once
+        nbytes = 2 * b * R * C * 4 + b * R * C + 2 * b * C * 2 + C * 4
         # 32-byte sectors of z that hold a selected channel, read and
         # written
         sectors = len(set((sel.cpu().numpy() * 4 // 32).tolist()))

@@ -18,8 +18,9 @@
 // 32-byte sector of z that holds a selected channel is read and written
 // whole (at 64 random channels of 256, ~29 of a row's 32 sectors: 58.7 MB
 // at B=8). Measured, the time follows those sectors at about the HBM rate
-// (PERF.md): the 33.5 MB estimate at B=8 does not stay in L2 from one call
-// to the next. That is the floor of any kernel on this layout.
+// (PERF.md), from which we infer (no L2 counter was read) that the 33.5 MB
+// estimate at B=8 does not stay in L2 from one call to the next; if so,
+// that is the floor of any kernel on this layout.
 //
 // Design: a block per (example, tile of rows); no divide per element.
 // Each thread keeps one channel k of the channel table, in address order
@@ -28,7 +29,7 @@
 // loads its entry (output column j, column p), then at once m and M of
 // (b, j) and the z values and codes of kRows rows of the tile (32-bit
 // offsets from the tile's base), divides step, clips and stores. A whole
-// row read as float4 by a warp (tools/consolidate_rows.cu) measured slower.
+// row read as float4 by a warp measured slower (PERF.md).
 // Nothing waits on another thread: a channel table in shared memory,
 // built behind a barrier, put the table's loads and the divide in front
 // of every z load and measured slower than the thread-per-element kernel
@@ -76,7 +77,8 @@ consolidate_kernel(float* __restrict__ z, const CodeT* __restrict__ codes,
       j = e.x;
       p = e.y;
     }
-    if (p < 0 || p >= P) continue;   // sel is validated by the callers
+    // a table entry out of range is skipped: its rows are not touched
+    if ((unsigned)j >= (unsigned)C || (unsigned)p >= (unsigned)P) continue;
     const float m = __half2float(mins[(size_t)b * C + j]);
     const float mx = __half2float(maxs[(size_t)b * C + j]);
     for (int r = row_lane; r < rows; r += kRows * row_step) {

@@ -73,7 +73,10 @@ def consolidate_fused(z: torch.Tensor, codes: torch.Tensor,
 
     ``order``: ``quantize.channel_order(sel_idx)``, the channel table in
     address order that the compression plan computes once; without it the
-    wrapper computes it on each call. The CPU path does not need it.
+    wrapper computes it on each call. Only its shape, type and layout are
+    checked: the kernel follows its contents, not ``sel_idx``, and skips an
+    entry whose output column or column of z is out of range. The CPU
+    path does not need it.
 
     On the card this is one launch (``consolidate_plan``): a block per
     (example, tile of rows), a thread per channel and few rows, its
@@ -117,8 +120,8 @@ def consolidate_fused(z: torch.Tensor, codes: torch.Tensor,
         elif (order.shape != (c, 2) or order.dtype != torch.int32
               or order.device != z.device or not order.is_contiguous()
               or order.data_ptr() % 8):
-            raise ValueError("order must be channel_order(sel_idx): "
-                             "contiguous (C, 2) int32 on z's device")
+            raise ValueError("order must be a contiguous, 8-byte aligned "
+                             "(C, 2) int32 table on z's device")
     return _launch(z, codes, mins, maxs, bits, order,
                    consolidate_plan(b, r, c))
 

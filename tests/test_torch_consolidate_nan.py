@@ -100,9 +100,10 @@ def _kernel_model(z, codes, mins, maxs, bits, order, plan):
     column, column of z; None = identity), thread t keeping channel
     k = t % row_threads (+ row_threads ...), dividing its step once, and
     walking rows t // row_threads, + 256 // row_threads, ...; every
-    (row, channel) of a tile must be visited once. float32 throughout;
-    np.maximum and np.minimum propagate NaN, as torch.maximum and
-    torch.minimum do."""
+    (row, channel) of a tile must be visited once, and an entry whose
+    output column or column of z is out of range is skipped. float32
+    throughout; np.maximum and np.minimum propagate NaN, as torch.maximum
+    and torch.minimum do."""
     b, r, p = z.shape
     c = codes.shape[-1]
     levels = np.float32((1 << bits) - 1)
@@ -122,6 +123,8 @@ def _kernel_model(z, codes, mins, maxs, bits, order, plan):
                     j, col = tab[k]
                     rr = np.arange(row_lane, rows, row_step)
                     seen[rr, k] += 1
+                    if not (0 <= j < c and 0 <= col < p):
+                        continue
                     cc = codes[bi, r0 + rr, j].astype(np.float32)
                     lo = m[j] + (cc - np.float32(0.5)) * step[j]
                     hi = m[j] + (cc + np.float32(0.5)) * step[j]
@@ -201,3 +204,30 @@ def test_consolidate_fused_takes_the_channel_table_on_cpu():
     with pytest.raises(ValueError, match="order"):
         consolidate_fused(torch.from_numpy(est.copy()), *args[:4],
                           order=channel_order(sel))
+
+
+@pytest.mark.parametrize("field,value", [(0, 9), (0, -1), (1, 40), (1, -2)])
+def test_kernel_model_skips_a_table_entry_out_of_range(field, value):
+    """A table of the right shape with one entry out of range (output
+    column ``field`` 0, column of z ``field`` 1): the walk leaves that
+    channel of z as it was and gives the plain version's bits on the
+    others, as the gpu test of the kernel demands."""
+    rng = np.random.default_rng(21)
+    b, r, p, bits = 2, 9, 24, 8
+    sel = np.array([9, 2, 14, 5, 20], np.int32)
+    x = rng.normal(size=(b, r, p)).astype(np.float32)
+    codes, mins, maxs = quantize_fused(torch.from_numpy(x), bits,
+                                       torch.from_numpy(sel))
+    est = x + rng.normal(size=(b, r, p)).astype(np.float32) * 0.4
+    order = channel_order(torch.from_numpy(sel)).numpy().copy()
+    j0 = int(order[2, 0])
+    order[2, field] = value
+    keep = [j for j in range(sel.size) if j != j0]
+    got = _kernel_model(est, codes.numpy(), mins.numpy(), maxs.numpy(),
+                        bits, order, consolidate_plan(b, r, sel.size))
+    want = consolidate_plain(
+        torch.from_numpy(est.copy()), codes[..., keep].contiguous(),
+        mins[:, keep].contiguous(), maxs[:, keep].contiguous(), bits,
+        torch.from_numpy(sel).long()[keep]).numpy()
+    np.testing.assert_array_equal(got[..., sel[j0]], est[..., sel[j0]])
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

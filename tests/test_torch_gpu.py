@@ -359,6 +359,42 @@ def test_consolidate_refuses_a_wrong_channel_table(cuda):
     assert _build.CONSOLIDATE.launches == before
 
 
+@pytest.mark.parametrize("bad", ["j_high", "j_negative", "p_high",
+                                 "p_negative"])
+def test_consolidate_skips_a_table_entry_out_of_range(cuda, bad):
+    """A channel table of the right shape with one entry whose output
+    column or column of z is out of range: the kernel skips that entry
+    (its column of z keeps its values), clips the others as the plain
+    version does, and writes nothing past z."""
+    gen = torch.Generator().manual_seed(17)
+    b, r, p, bits = 2, 7, 16, 8
+    sel = torch.tensor([9, 2, 14, 5], dtype=torch.int32, device=cuda)
+    c = sel.numel()
+    z0 = (torch.randn((b, r, p), generator=gen) * 2.0).to(cuda)
+    codes, mins, maxs = quantize_plain(z0, bits, sel.long())
+    buf = torch.randn((b * r * p + 64,), generator=gen).to(cuda)
+    buf[:b * r * p] = (z0 + 0.3 * torch.randn((b, r, p), generator=gen)
+                       .to(cuda)).view(-1)
+    est = buf[:b * r * p].view(b, r, p)
+    guard = buf[b * r * p:].clone()
+    order = quant_kernel.channel_order(sel).clone()
+    k = 1
+    j0 = int(order[k, 0])
+    order[k, {"j_high": 0, "j_negative": 0, "p_high": 1,
+              "p_negative": 1}[bad]] = \
+        {"j_high": c + 5, "j_negative": -1, "p_high": p + 3,
+         "p_negative": -2}[bad]
+    keep = [j for j in range(c) if j != j0]
+    want = consolidate_plain(est.clone(), codes[..., keep].contiguous(),
+                             mins[:, keep].contiguous(),
+                             maxs[:, keep].contiguous(), bits,
+                             sel.long()[keep])
+    got = consolidate_fused(est, codes, mins, maxs, bits, sel, order=order)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(buf[b * r * p:], guard)
+
+
 @pytest.mark.parametrize("s", [2, 256, 4096])
 @pytest.mark.parametrize("c", [1, 5, 64])
 @pytest.mark.parametrize("layout", ["rows", "cols"])

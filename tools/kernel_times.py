@@ -39,9 +39,7 @@ under ``build/parent``::
 histogram kernels at the path's shapes, each built to stop after one of
 its phases (their outputs are wrong; they only split the time).
 ``--plans`` times this checkout's consolidate kernel at B=1 and B=8 under
-tiles of 4 to 128 rows, beside the plan the wrapper picks, and the
-whole-row probe ``tools/consolidate_rows.cu`` (a warp per row, read as
-float4) that the kernel's design was timed against.
+tiles of 4 to 128 rows, beside the plan the wrapper picks.
 """
 from __future__ import annotations
 
@@ -231,18 +229,11 @@ def time_phases(dev) -> None:
 
 def time_plans(dev) -> None:
     """The consolidate kernel at C=64 and 16, B=1 and 8, under tiles of 4
-    to 128 rows (threads across a row: every channel), and the whole-row
-    probe ``tools/consolidate_rows.cu`` at 8 and 16 rows a block; each
-    held bit for bit against the plain version first; two rounds."""
+    to 128 rows (threads across a row: every channel); each held bit for
+    bit against the plain version first; two rounds."""
     import torch
-    from repro_torch.kernels import _build
     from repro_torch.kernels import consolidate as cons
     from repro_torch.kernels.quantize import channel_order, quantize_fused
-    rows_k = _build.CudaKernel("consolidate_rows",
-                               str(ROOT / "tools" / "consolidate_rows.cu"),
-                               _build.CONSOLIDATE.entries)
-    rows_k.finish_build()
-    kept = _build.CONSOLIDATE
     gen = torch.Generator().manual_seed(5)
     for c in (cs.C, 16):
         sel = torch.randperm(cs.P, generator=gen)[:c].to(torch.int32).to(dev)
@@ -257,27 +248,19 @@ def time_plans(dev) -> None:
                 want = cons.consolidate_plain(est.clone(), codes, mins, maxs,
                                               cs.BITS, sel.long())
                 picked = cons.consolidate_plan(b, cs.R, c)
-                runs = [(kept, cons.ConsolidatePlan(rows, c), "")
-                        for rows in (4, 8, 16, 32, 64, 128)]
-                runs += [(rows_k, cons.ConsolidatePlan(rows, c), "whole rows ")
-                         for rows in (8, 16)]
-                for kernel, plan, what in runs:
-                    _build.CONSOLIDATE = kernel
-                    try:
-                        got = cons._launch(est.clone(), codes, mins, maxs,
-                                           cs.BITS, order, plan)
-                        if not torch.equal(got.view(torch.int32),
-                                           want.view(torch.int32)):
-                            raise SystemExit(f"{what}{plan} differs from "
-                                             "the plain version")
-                        mark = " (picked)" if plan == picked and not what \
-                            else ""
-                        report(f"consolidate {what}C={c} B={b} plan "
-                               f"{tuple(plan)}{mark} (round {rnd})",
-                               lambda: cons._launch(est, codes, mins, maxs,
-                                                    cs.BITS, order, plan))
-                    finally:
-                        _build.CONSOLIDATE = kept
+                for rows in (4, 8, 16, 32, 64, 128):
+                    plan = cons.ConsolidatePlan(rows, c)
+                    got = cons._launch(est.clone(), codes, mins, maxs,
+                                       cs.BITS, order, plan)
+                    if not torch.equal(got.view(torch.int32),
+                                       want.view(torch.int32)):
+                        raise SystemExit(f"{plan} differs from the plain "
+                                         "version")
+                    mark = " (picked)" if plan == picked else ""
+                    report(f"consolidate C={c} B={b} plan {tuple(plan)}"
+                           f"{mark} (round {rnd})",
+                           lambda: cons._launch(est, codes, mins, maxs,
+                                                cs.BITS, order, plan))
 
 
 def main() -> int:
@@ -289,7 +272,7 @@ def main() -> int:
                          "phase")
     ap.add_argument("--plans", action="store_true",
                     help="time this checkout's consolidate kernel under "
-                         "other tiles of rows, and the whole-row probe")
+                         "other tiles of rows")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
