@@ -17,7 +17,7 @@ package ``repro``. Phases, each printing lines before the last:
      edge cases (quantize: NaN, 12 bits, signed zeros against the plain
      version on the CPU, R=1 and 7 (also under a cluster of 16 blocks),
      R=4095, R=65536 beyond what the blocks hold, C=1, 8 and 33,
-     sel_idx=None; histogram: one symbol everywhere, K=3 (also under a
+     sel_idx=None, a channel-table entry out of range skipped; histogram: one symbol everywhere, K=3 (also under a
      cluster of 16 blocks), C=5 peaked; consolidate: NaN in the estimate,
      NaN side info and both, NaN where the plain version has NaN and the
      same bits elsewhere, with and without the plan's channel table); cdf
@@ -42,19 +42,29 @@ package ``repro``. Phases, each printing lines before the last:
      decoded codes (the cdf kernel's path), exact against numpy, and its
      device operations per request from the profiler: the histogram and
      cdf kernels and three copies, nothing else;
-  5. qwen2-7b at its full published config (28 layers, bf16, random
+  5. the offline side of the BaF path at the paper's full width
+     (``pretrain_cnn`` 4 steps on batches of 8 at 512x512,
+     ``compute_channel_order`` over 2 batches, ``train_baf`` 4 steps at
+     C=64, then eight requests through ``SplitInferenceEngine`` with the
+     trained weights), each with the kernels' counts read over it alone:
+     the quantize kernel once per BaF step and bit-identical to its plain
+     version on the first step's z, the frozen CNN bit-identical before and
+     after, losses finite, logits finite; the steps' times, the selection
+     time and the phase's peak memory; at smoke scale one pretraining step
+     and one BaF step on the card against the same steps on the CPU;
+  6. qwen2-7b at its full published config (28 layers, bf16, random
      weights from a seed): B=2, a 512-token prefill (flash kernel, 28
      launches), the KV cache filled token by token, 16 greedy decode steps;
      prefill against the cache fill's last logits and against the same
      model with plain attention on the card;
-  6. rwkv6-3b at its full published config (32 layers): B=2, a 512-token
+  7. rwkv6-3b at its full published config (32 layers): B=2, a 512-token
      prefill (32 scan launches), a 4096-token long ingest in blocks of 1024
      (128 launches) held against one 4096-token prefill, 16 decode steps
      from the ingest state; the top kernels of a prefill, of the ingest
      and of a decode step;
-  7. both LMs at smoke scale in float32 from the same seeded weights: the
+  8. both LMs at smoke scale in float32 from the same seeded weights: the
      kernels on the card against the plain versions on the CPU;
-  8. times: each kernel's device time and device operations per call at
+  9. times: each kernel's device time and device operations per call at
      its path's shapes (torch.profiler) beside its bound, its plain version
      and, where one PyTorch call computes the same function, that call; the
      histogram also on the path's own codes; cdf through the cdf path's
@@ -108,6 +118,9 @@ SCAN_TOL = 1e-4
 LM_F32_RTOL = 1e-3
 LM_CPU_TOL = 1e-4                # smoke LMs in float32, card against CPU
 QWEN_B, QWEN_PROMPT, GEN = 2, 512, 16
+# The offline side: steps of each trainer, batches of the selection, the
+# batch, and the steps timed after it.
+TRAIN_STEPS, SELECT_BATCHES, OFFLINE_BATCH, TIMED_STEPS = 4, 2, 8, 5
 RWKV_B, RWKV_PROMPT, RWKV_LONG, RWKV_BLOCK = 2, 512, 4096, 1024
 
 
@@ -284,7 +297,8 @@ def check_kernels(dev) -> dict:
         quantize_case(2, R, P, 8, 1.0, 0.0)[1],               # C=8
         quantize_case(2, R, P, P, 1.0, 0.0, every=True)[1],   # sel_idx=None
         quantize_nan_case(dev, gen),
-        quantize_zeros_case(dev, gen))
+        quantize_zeros_case(dev, gen),
+        quantize_table_out_of_range_case(dev, gen))
 
     big = torch.randint(0, 256, (B * R, C), generator=gen, dtype=torch.uint8)
     wide = torch.randint(-2, 4098, (4096, 64), generator=gen,
@@ -401,6 +415,38 @@ def quantize_zeros_case(dev, gen) -> float:
     if not ok:
         raise AssertionError("quantize kernel orders the zeros unlike jnp")
     return max_abs_diff(zip((g.cpu() for g in got), want))
+
+
+def quantize_table_out_of_range_case(dev, gen) -> float:
+    """The plan's channel table with one entry's output column (C, -1) or
+    column of x (P, -1) out of range, at the main path's shape: the kernel
+    skips that entry, and every other output column's codes and side info
+    are bit-identical to the plain version's."""
+    import torch
+    from repro_torch.kernels.quantize import (channel_order, quantize_fused,
+                                              quantize_plain)
+    x = torch.randn((2, R, P), generator=gen).to(dev)
+    sel = torch.randperm(P, generator=gen)[:C].to(torch.int32).to(dev)
+    want = quantize_plain(x, BITS, sel.long())
+    err = 0.0
+    for field, value in ((0, C), (0, -1), (1, P), (1, -1)):
+        order = channel_order(sel).clone()
+        j0 = int(order[5, 0])
+        order[5, field] = value
+        got = quantize_fused(x, BITS, sel, order=order)
+        sync(dev)
+        keep = [j for j in range(C) if j != j0]
+        pairs = [(g[..., keep], w[..., keep]) for g, w in zip(got, want)]
+        ok = all(bits_equal(g, w) for g, w in pairs)
+        print(f"quantize with table entry 5's "
+              f"{('output column', 'column of x')[field]} set to {value}: "
+              f"the other {C - 1} columns "
+              f"{'bit-identical' if ok else 'DIFFER'}")
+        if not ok:
+            raise AssertionError("quantize kernel follows a table entry out "
+                                 "of range")
+        err = max(err, max_abs_diff(pairs))
+    return err
 
 
 def quantize_nan_case(dev, gen) -> float:
@@ -820,7 +866,258 @@ def cdf_path(dev, decoded) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 5-7: the LM serving path at full width
+# Phase 5: the offline side of the BaF path at full width
+# ---------------------------------------------------------------------------
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import _build
+    return {k.name: k.launches for k in _build.KERNELS}
+
+
+def offline_path(dev, smi: str) -> None:
+    """pretrain_cnn -> compute_channel_order -> train_baf -> eight requests
+    through SplitInferenceEngine, at the paper's full width, each with the
+    kernels' counts read over it alone; then the steps' times, the
+    selection time and the phase's peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch.configs.yolo_baf import full_config
+    from repro_torch.core.split import SplitInferenceEngine
+    from repro_torch.data.synthetic import ShapesDatasetConfig, shapes_batch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize import (channel_order, quantize_fused,
+                                              quantize_plain)
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import baf_trainer as bt
+
+    cfg = full_config()
+    data = ShapesDatasetConfig(image_size=cfg.input_size, num_classes=8,
+                               batch_size=OFFLINE_BATCH)
+    print(f"offline side: {cfg}, {data}, {TRAIN_STEPS} pretrain steps, "
+          f"selection over {SELECT_BATCHES} batches, {TRAIN_STEPS} BaF "
+          f"steps at C={C}, {BITS} bits, hidden {HIDDEN}")
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    _build.reset_launches()
+    model, hist = bt.pretrain_cnn(cfg, data, steps=TRAIN_STEPS, log_every=1,
+                                  verbose=False, device=dev)
+    sync(dev)
+    counts = {"pretrain_cnn": launch_counts()}
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    sel = bt.compute_channel_order(model, data, batches=SELECT_BATCHES,
+                                   device=dev)          # ends on the host
+    select_s = time.perf_counter() - t0
+    counts["compute_channel_order"] = launch_counts()
+    order = sel.order[:C]
+    print(f"channel order (best-first): {order[:10].tolist()}...; rho "
+          f"{sel.rho.shape}, top score {float(sel.scores[0])!r}")
+
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    _build.reset_launches()
+    res = bt.train_baf(model, cfg, data, order, bits=BITS, hidden=HIDDEN,
+                       steps=TRAIN_STEPS, log_every=1, verbose=False,
+                       device=dev)
+    sync(dev)
+    counts["train_baf"] = launch_counts()
+
+    _build.reset_launches()
+    eng = SplitInferenceEngine(model, res.baf_params, res.sel_idx, bits=BITS,
+                               backend="rans", device=dev)
+    imgs, labels = shapes_batch(data._replace(batch_size=8), 10_000, 0, dev)
+    logits = torch.cat([eng(imgs[i:i + 1])[0] for i in range(8)])
+    sync(dev)
+    counts["serve"] = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for name, c in counts.items():
+        print(f"offline side launches, {name}: {c}")
+
+    # checks, after the counts were read
+    losses = [v for _, v, _ in hist] + [v for _, v in res.losses]
+    print(f"pretrain losses {[v for _, v, _ in hist]!r}, BaF losses "
+          f"{[v for _, v in res.losses]!r}")
+    if not all(np.isfinite(losses)) or len(losses) != 2 * TRAIN_STEPS:
+        raise AssertionError(f"offline losses not finite: {losses}")
+    frozen = all(torch.equal(v, before[k])
+                 for k, v in model.state_dict().items()) and \
+        all(q.grad is None for q in model.parameters())
+    print(f"the CNN's weights and BN stats bit-identical before and after "
+          f"train_baf, no gradient on them: {'yes' if frozen else 'NO'}")
+    if not frozen:
+        raise AssertionError("train_baf changed the frozen CNN")
+    want = {"pretrain_cnn": {}, "compute_channel_order": {},
+            "train_baf": {"quantize": TRAIN_STEPS},
+            "serve": {"quantize": 8, "histogram": 8}}
+    for name, c in counts.items():
+        if {k: v for k, v in c.items() if v} != want[name]:
+            raise AssertionError(f"{name} launched {c}, not {want[name]}")
+    # the first BaF step's z: train_baf's stream is seed + 7, its step 0
+    img0, _ = shapes_batch(data, 42 + 7, 0, dev)
+    z = model.edge(img0)[1].contiguous()
+    b, h, w, p = z.shape
+    sel_t = torch.as_tensor(order.astype(np.int32), device=dev)
+    got = quantize_fused(z.view(b, h * w, p), BITS, sel_t,
+                         order=channel_order(sel_t))
+    plain = quantize_plain(z.view(b, h * w, p), BITS, sel_t.long())
+    sync(dev)
+    same = all(bits_equal(g, q) for g, q in zip(got, plain))
+    print(f"quantize kernel on the first BaF step's z {tuple(z.shape)}: "
+          f"codes and side info vs plain {'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("quantize kernel differs on the training path")
+    if tuple(logits.shape) != (8, cfg.num_classes) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    print(f"eight requests through SplitInferenceEngine with the trained "
+          f"weights: logits {tuple(logits.shape)} finite: yes")
+
+    # times: the trainers' own steps, on the trained weights
+    img, lbl = shapes_batch(data, 1, 0, dev)
+    model.requires_grad_(True)
+    opt = adamw_init(bt.trainable(model))
+    lr = torch.tensor(3e-3)
+
+    def pre():
+        nonlocal opt
+        opt = bt.pretrain_step(model, opt, lr, img, lbl, bt.PRETRAIN_ADAMW)[0]
+        sync(dev)
+    baf = res.baf_params.requires_grad_(True)
+    bopt = adamw_init(bt.trainable(baf))
+    loss_fn = bt.make_baf_loss(model, order, BITS, device=dev)
+    zb = model.edge(img)[1]
+
+    def baf_one():
+        nonlocal bopt
+        bopt = bt.baf_step(baf, bopt, lr, zb, loss_fn, bt.BAF_ADAMW)[0]
+        sync(dev)
+    pre_ms, baf_ms = host_ms(pre), host_ms(baf_one)
+    t0 = time.perf_counter()
+    bt.compute_channel_order(model, data, batches=SELECT_BATCHES, device=dev)
+    select_warm_s = time.perf_counter() - t0
+    profile_top(dev, "pretrain step", pre)
+    profile_top(dev, "BaF step", baf_one)
+    profile_top(dev, "selection", lambda: bt.compute_channel_order(
+        model, data, batches=SELECT_BATCHES, device=dev))
+    rows, _ = _device_rows(baf_one, [ProfilerActivity.CUDA])
+    quant = [(us, n) for us, k, n in rows if "quantize_kernel" in k]
+    if [n for _, n in quant] != [1]:
+        raise AssertionError(f"a BaF step ran the quantize kernel "
+                             f"{quant} times")
+    quant_ms = quant[0][0] / 1e3
+    busy_ms = sum(us for us, _, _ in rows) / 1e3
+    model.requires_grad_(False)
+    baf.requires_grad_(False)
+    print(f"offline times ({smi}): pretrain step {pre_ms!r} ms, BaF step "
+          f"{baf_ms!r} ms (host clock around synchronised steps, mean of "
+          f"{TIMED_STEPS}); the quantize kernel {quant_ms!r} ms of device "
+          f"time within a BaF step (device busy {busy_ms!r} ms); selection "
+          f"over {SELECT_BATCHES} batches {select_s * 1e3!r} ms, again "
+          f"{select_warm_s * 1e3!r} ms; peak memory {peak / 1e9!r} GB")
+    train_card_vs_cpu(dev)
+
+
+def host_ms(fn) -> float:
+    """Mean ms of ``fn`` (which ends in a sync) over TIMED_STEPS calls
+    after one warm-up, on the host clock."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        fn()
+    return (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+
+
+def train_card_vs_cpu(dev) -> None:
+    """At smoke scale, one pretraining step and one BaF step on the card
+    against the same steps on the CPU, from the same weights (the seeded
+    initialisers draw on the CPU), the same batch and, for the BaF step,
+    the same z (so the same codes), at the trainers' peak learning rates.
+    Gradients and the optimizer are held apart: Adam's first step is about
+    lr * sign(g), so a last-bit difference in a gradient near 0 can move a
+    weight by up to 2 lr. Held within CPU_TOL, relative and absolute: the
+    losses, the BN running stats the step leaves, the gradients (absolute
+    tolerance CPU_TOL times the leaf's largest |g|), and the weights
+    AdamW's step on the card gives from the CPU's gradients against the
+    CPU's step. The weights after the whole step on each are printed."""
+    import torch
+    from repro_torch.configs.yolo_baf import smoke_config, smoke_data_config
+    from repro_torch.core.baf import BaFConv, BaFConvConfig
+    from repro_torch.data.synthetic import shapes_batch
+    from repro_torch.models.cnn import CNN
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import baf_trainer as bt
+
+    cpu = torch.device("cpu")
+    cfg = smoke_config()
+    c = cfg.split_p // 4
+    img, lbl = shapes_batch(smoke_data_config()._replace(batch_size=8), 0, 0,
+                            cpu)
+    z = CNN(cfg, seed=0, device=cpu).edge(img)[1]
+    sel = np.random.default_rng(5).permutation(cfg.split_p)[:c]
+
+    def grads(d):
+        """-> the two steps' halves on ``d``: (losses, gradients, BN
+        stats, the modules)."""
+        model = CNN(cfg, seed=0, device=d).requires_grad_(True)
+        loss, _, g = bt.cnn_grads(model, img.to(d), lbl.to(d))
+        baf = BaFConv(BaFConvConfig(c=c, q=cfg.split_q, hidden=16), seed=1,
+                      device=d).requires_grad_(True)
+        frozen = CNN(cfg, seed=0, device=d)
+        bloss, bg = bt.baf_grads(baf, z.to(d), bt.make_baf_loss(
+            frozen, sel, BITS, device=d))
+        return [loss, bloss], [g, bg], list(model.buffers()), [model, baf]
+
+    def steps(mods, gs, lrs):
+        """AdamW's first step of both modules from gradients ``gs``."""
+        for mod, g, lr, ocfg in zip(mods, gs, lrs,
+                                    (bt.PRETRAIN_ADAMW, bt.BAF_ADAMW)):
+            params = bt.trainable(mod)
+            bt.apply_adamw(params, {k: v.to(next(iter(params.values()))
+                                              .device) for k, v in g.items()},
+                           adamw_init(params), lr, ocfg)
+        return [q.detach().cpu() for m in mods for q in m.parameters()]
+
+    lrs = (torch.tensor(3e-3), torch.tensor(2e-3))
+    card_loss, card_g, card_bn, card_mods = grads(dev)
+    cpu_loss, cpu_g, cpu_bn, cpu_mods = grads(cpu)
+    ok = all(torch.allclose(a.cpu(), b, rtol=CPU_TOL, atol=CPU_TOL)
+             for a, b in zip(card_loss + card_bn, cpu_loss + cpu_bn))
+    worst_g = 0.0
+    for ga, gb in zip(card_g, cpu_g):
+        for k, b in gb.items():
+            a, scale = ga[k].cpu(), float(b.abs().max())
+            ok = ok and torch.allclose(a, b, rtol=CPU_TOL,
+                                       atol=CPU_TOL * scale)
+            worst_g = max(worst_g, float((a - b).abs().max()) / scale)
+    # the optimizer: card and CPU from the CPU's gradients
+    card_w = steps(card_mods, cpu_g, lrs)
+    cpu_w = steps(cpu_mods, cpu_g, lrs)
+    opt_err = max_abs_diff(zip(card_w, cpu_w))
+    ok = ok and all(torch.allclose(a, b, rtol=CPU_TOL, atol=CPU_TOL)
+                    for a, b in zip(card_w, cpu_w))
+    # the whole steps, each device from its own gradients
+    whole = [steps(r[3], r[1], lrs) for r in (grads(dev), grads(cpu))]
+    moved = [(a - b).abs() for a, b in zip(*whole)]
+    far = sum(int((m > CPU_TOL).sum()) for m in moved)
+    print(f"smoke scale, one pretraining step and one BaF step, card vs CPU "
+          f"(tolerance {CPU_TOL} relative and absolute): losses "
+          f"{[float(v) for v in card_loss]!r} vs "
+          f"{[float(v) for v in cpu_loss]!r}; largest gradient difference "
+          f"{worst_g!r} of the leaf's largest |g|; BN stats max abs diff "
+          f"{max_abs_diff(zip((b.cpu() for b in card_bn), cpu_bn))!r}; "
+          f"AdamW on the card vs the CPU from the same gradients: max abs "
+          f"diff {opt_err!r}; whole steps, each from its own gradients: max "
+          f"abs diff {max(float(m.max()) for m in moved)!r}, {far} of "
+          f"{sum(m.numel() for m in moved)} weights beyond the tolerance "
+          f"(Adam's first step on a gradient near 0)")
+    if not ok:
+        raise AssertionError("training steps disagree between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-8: the LM serving path at full width
 # ---------------------------------------------------------------------------
 
 def _argmax_tokens(logits):
@@ -1156,7 +1453,7 @@ def lms_card_vs_cpu(dev) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: kernel times
+# Phase 9: kernel times
 # ---------------------------------------------------------------------------
 
 def timed(fn):
@@ -1416,6 +1713,7 @@ def main() -> int:
         print(f"stage {k}: {v * 1e3!r} ms per request")
     launches = dict(res["launches"])
     launches["cdf"] = cdf_path(dev, res["decoded"])["cdf"]
+    offline_path(dev, smi)
     qwen = qwen_path(dev)
     rwkv = rwkv_path(dev)
     launches["flash_attention"] = qwen["launches"]["flash_attention"]

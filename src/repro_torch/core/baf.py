@@ -1,6 +1,7 @@
 """Back-and-Forth (BaF) prediction, paper §3.3, Fig. 2, eq. (6), conv variant.
 
-Counterpart of the conv half of ``repro/core/baf.py``.
+Counterpart of the conv half of ``repro/core/baf.py``, for inference and
+for training (quantization in the loop, ``train/baf_trainer.py``).
 
 Backward: dequantized selected channels --inverse BN--> pre-BN values
           --4 conv layers (PReLU; the first a x2 transposed conv)-->
@@ -66,7 +67,6 @@ class BaFConv(nn.Module):
         self.c4 = tnn.Conv2d(cfg.hidden, cfg.q, 3, gen=gen)
         self.to(dev)
 
-    @torch.no_grad()
     def backward_predict(self, z_hat_sel: torch.Tensor,
                          bn_sel: dict) -> torch.Tensor:
         """(B, H, W, C) -> (B, 2H, 2W, Q), starting with inverse BN."""
@@ -77,7 +77,6 @@ class BaFConv(nn.Module):
         return self.c4(x)
 
 
-@torch.no_grad()
 def baf_conv_predict(baf: BaFConv, split, sel_idx: torch.Tensor,
                      z_hat_sel: torch.Tensor, *,
                      codes: torch.Tensor | None = None,
@@ -85,7 +84,10 @@ def baf_conv_predict(baf: BaFConv, split, sel_idx: torch.Tensor,
     """Backward + forward, then consolidation when ``codes`` are given.
 
     ``split`` is the CNN's frozen split ``ConvBN`` (stride 2): the forward
-    predictor.
+    predictor. Gradients flow to the BaF weights that require them, through
+    the frozen split layer; training calls this without ``codes``
+    (consolidation is ignored in training, paper §4). The served path's
+    callers (``core/split.py``) run it under ``torch.no_grad()``.
     """
     bn_sel = gather_bn(split.bn.params(), sel_idx)
     x_tilde = baf.backward_predict(z_hat_sel, bn_sel)

@@ -119,8 +119,12 @@ quantize_kernel(const float* __restrict__ x, const int2* __restrict__ chans,
   int c = -1, p = -1;
   if (entry < C) {
     const int2 e = chans ? chans[entry] : make_int2(entry, entry);
-    c = e.x;
-    p = e.y < P ? e.y : -1;                    // callers validate sel
+    // a table entry out of range is skipped: it reads no x and writes no
+    // codes or side info
+    if ((unsigned)e.x < (unsigned)C && (unsigned)e.y < (unsigned)P) {
+      c = e.x;
+      p = e.y;
+    }
   }
   const int row_off = t >> group_log2;
   const int step = kThreads >> group_log2;
@@ -287,7 +291,9 @@ int launch(const void* x, const void* chans, void* codes, void* mins,
 // x (B, R, P) f32; chans (C, 2) int32 (output column, x column) in the
 // order the kernel takes them (repro_torch/kernels/quantize.py::
 // channel_order), or null to take channel k of x as output column k (then
-// P == C); codes (B, R, C) uint8 (1..8 bits) or uint16 (9..16 bits);
+// P == C); an entry whose output column is not in [0, C) or whose column
+// of x is not in [0, P) is skipped, and its output column is not written;
+// codes (B, R, C) uint8 (1..8 bits) or uint16 (9..16 bits);
 // mins/maxs (B, C) f16. The plan (group, cluster, rows_per_block, held)
 // comes from repro_torch/kernels/quantize.py::quantize_plan.
 extern "C" int baf_quantize_f32(const void* x, const void* chans, void* codes,

@@ -82,7 +82,10 @@ def quantize_fused(x: torch.Tensor, bits: int,
     ``order``: ``channel_order(sel_idx)``, computed once by a caller that
     quantizes the same selection again and again; the kernel then reads
     only it. Without it the wrapper computes it on each call (a few more
-    device operations). The CPU path does not need it.
+    device operations). The CPU path does not need it. Only the table's
+    shape, type and layout are checked here: the kernel skips an entry
+    whose output column or column of x is out of range (it reads no x and
+    writes no codes or side info for it).
 
     On the card this is one launch (``quantize_plan``): a cluster of up to
     16 blocks per (example, group of up to 8 channels), each block holding

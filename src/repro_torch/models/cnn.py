@@ -1,4 +1,4 @@
-"""YOLO-v3-front CNN of the Tier-A reproduction, inference only.
+"""YOLO-v3-front CNN of the Tier-A reproduction.
 
 Counterpart of ``repro/models/cnn.py``: the Darknet-53 stem through the
 paper's split layer l=12 with a width multiplier. At width 1 and a 512x512
@@ -50,15 +50,17 @@ STEM_RES_END = (3, 6, 8)          # and added after these
 
 
 class ConvBN(nn.Module):
-    """Conv without bias followed by inference BN."""
+    """Conv without bias followed by BN."""
 
     def __init__(self, cin: int, cout: int, k: int, *, gen=None):
         super().__init__()
         self.conv = tnn.Conv2d(cin, cout, k, bias=False, gen=gen)
         self.bn = tnn.BatchNorm(cout)
 
-    def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-        return self.bn(self.conv(x, stride))
+    def forward(self, x: torch.Tensor, stride: int = 1, *,
+                train: bool = False) -> torch.Tensor:
+        y = self.conv(x, stride)
+        return self.bn.forward_train(y) if train else self.bn(y)
 
 
 class CNN(nn.Module):
@@ -66,6 +68,12 @@ class CNN(nn.Module):
 
     ``seed`` draws the weights from a ``torch.Generator`` on the CPU (the
     same numbers on every device); ``device=None`` means the card.
+
+    ``edge``, ``cloud`` and ``forward`` run without gradient and with the
+    stored BN statistics, as the served path does. With ``train=True``
+    they are the counterpart of ``cnn_forward_train``: batch-stat BN whose
+    running stats take their EMA step in place, with gradients to every
+    weight whose ``requires_grad`` is set.
     """
 
     def __init__(self, cfg: CNNConfig, *, seed: int = 0, device=None):
@@ -88,32 +96,37 @@ class CNN(nn.Module):
         self.head = tnn.Dense(ch(256), cfg.num_classes, gen=gen)
         self.to(dev)
 
-    @torch.no_grad()
-    def edge(self, img: torch.Tensor):
+    def edge(self, img: torch.Tensor, *, train: bool = False):
         """Mobile side: stem, then split conv + BN (no activation).
 
         img (B, S, S, 3) -> (x_in (B, S/4, S/4, Q), z (B, S/8, S/8, P)).
         """
-        x = img
-        shortcut = None
-        for i, (layer, s) in enumerate(zip(self.stem, STEM_STRIDES)):
-            if i in STEM_RES_START:
-                shortcut = x
-            x = tnn.leaky_relu(layer(x, s))
-            if i in STEM_RES_END:
-                x = x + shortcut
-        return x, self.split(x, 2)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            x = img
+            shortcut = None
+            for i, (layer, s) in enumerate(zip(self.stem, STEM_STRIDES)):
+                if i in STEM_RES_START:
+                    shortcut = x
+                x = tnn.leaky_relu(layer(x, s, train=train))
+                if i in STEM_RES_END:
+                    x = x + shortcut
+            return x, self.split(x, 2, train=train)
 
-    @torch.no_grad()
-    def cloud(self, z: torch.Tensor) -> torch.Tensor:
+    def cloud(self, z: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         """Cloud side: leaky(z), tail residual pairs, GAP, dense head."""
-        x = tnn.leaky_relu(z)
-        for i in range(0, len(self.tail), 2):
-            sc = x
-            x = tnn.leaky_relu(self.tail[i](x))
-            x = tnn.leaky_relu(self.tail[i + 1](x))
-            x = x + sc
-        return self.head(x.mean(dim=(1, 2)))
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            x = tnn.leaky_relu(z)
+            for i in range(0, len(self.tail), 2):
+                sc = x
+                x = tnn.leaky_relu(self.tail[i](x, train=train))
+                x = tnn.leaky_relu(self.tail[i + 1](x, train=train))
+                x = x + sc
+            return self.head(x.mean(dim=(1, 2)))
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         return self.cloud(self.edge(img)[1])
+
+    def forward_train(self, img: torch.Tensor) -> torch.Tensor:
+        """Counterpart of ``cnn_forward_train``: logits of the batch-stat
+        forward; every BN's running stats take their EMA step."""
+        return self.cloud(self.edge(img, train=True)[1], train=True)

@@ -1,9 +1,10 @@
 """Layers of the split CNN, the BaF predictor and the LM zoo.
 
 Counterpart of ``repro/nn.py`` for the layers the port uses: conv,
-conv-transpose, inference BN and its inverse, leaky ReLU, PReLU, dense
-(channel-last (B, H, W, C)), and for the LMs RMSNorm, LayerNorm and
-squared ReLU over the last dim, computed in float32 and cast back.
+conv-transpose, inference and training BN and the inverse BN, leaky ReLU,
+PReLU, dense (channel-last (B, H, W, C)), and for the LMs RMSNorm,
+LayerNorm and squared ReLU over the last dim, computed in float32 and cast
+back.
 Public tensors stay NHWC as in the JAX package. Convolutions run on the
 NCHW view ``x.permute(0, 3, 1, 2)`` of the NHWC tensor, which PyTorch
 treats as ``channels_last`` memory, so no layout copy is made.
@@ -20,10 +21,18 @@ Parity with XLA, which the tests hold at 1e-5:
   SAME output size.
 * leaky ReLU slope 0.1, BN eps 1e-5, ``batchnorm_inverse`` floors |scale|
   at 1e-6.
+* Training BN normalises by the biased batch variance and moves the
+  running stats by EMA with momentum 0.97, written out
+  (``F.batch_norm`` keeps the unbiased variance).
+* Leaky ReLU and PReLU are ``torch.where(x >= 0, ...)``, so the gradient
+  at exactly 0 is the ``x`` branch's, as ``jnp.where`` gives it
+  (``F.leaky_relu`` takes the other branch there).
 
-Weights are stored OIHW. Initialisers draw from an explicit
-``torch.Generator`` with the JAX package's fan-in scales; they cannot
-reproduce ``jax.random``, so parity tests bridge weights (``bridge.py``).
+Weights are stored OIHW and built frozen (``requires_grad=False``); a
+trainer sets ``requires_grad_(True)`` on the module it trains. Initialisers
+draw from an explicit ``torch.Generator`` with the JAX package's fan-in
+scales; they cannot reproduce ``jax.random``, so parity tests bridge
+weights (``bridge.py``).
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from torch import nn
 
 LEAKY_ALPHA = 0.1
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.97
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +125,25 @@ def batchnorm_apply(p: dict, x: torch.Tensor, *, eps: float = BN_EPS):
     return (x - p["mean"]) * inv * p["scale"] + p["bias"]
 
 
+def batchnorm_train_apply(p: dict, x: torch.Tensor, *, eps: float = BN_EPS,
+                          momentum: float = BN_MOMENTUM):
+    """Training BN over the trailing channel dim -> (y, new mean, new var).
+
+    Normalises by the batch mean and the biased batch variance (``jnp.var``;
+    ``F.batch_norm`` would fold the unbiased one into its running stats),
+    and returns the running stats moved towards the batch's by EMA,
+    ``m * old + (1 - m) * batch``, without gradient.
+    """
+    dims = tuple(range(x.ndim - 1))
+    mean = x.mean(dim=dims)
+    var = (x - mean).square().mean(dim=dims)
+    y = (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    with torch.no_grad():
+        new_mean = momentum * p["mean"] + (1 - momentum) * mean
+        new_var = momentum * p["var"] + (1 - momentum) * var
+    return y, new_mean, new_var
+
+
 def batchnorm_inverse(p: dict, z: torch.Tensor, *, eps: float = BN_EPS):
     """Pre-BN value from the BN output; |scale| < 1e-6 is floored to 1e-6."""
     scale = p["scale"]
@@ -190,13 +219,16 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BN with stored statistics (identity at init)."""
+    """BN with stored statistics (identity at init). ``scale`` and ``bias``
+    are parameters (frozen until a trainer sets ``requires_grad``), the
+    running ``mean`` and ``var`` buffers."""
 
     def __init__(self, ch: int):
         super().__init__()
-        for name, fill in (("scale", 1.0), ("bias", 0.0), ("mean", 0.0),
-                           ("var", 1.0)):
-            self.register_buffer(name, torch.full((ch,), fill))
+        self.scale = frozen(torch.ones(ch))
+        self.bias = frozen(torch.zeros(ch))
+        self.register_buffer("mean", torch.zeros(ch))
+        self.register_buffer("var", torch.ones(ch))
 
     def params(self) -> dict:
         return {"scale": self.scale, "bias": self.bias, "mean": self.mean,
@@ -204,6 +236,14 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return batchnorm_apply(self.params(), x)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """Batch-stat BN; the running stats take the EMA step in place."""
+        y, mean, var = batchnorm_train_apply(self.params(), x)
+        with torch.no_grad():
+            self.mean.copy_(mean)
+            self.var.copy_(var)
+        return y
 
 
 class PReLU(nn.Module):

@@ -395,6 +395,34 @@ def test_consolidate_skips_a_table_entry_out_of_range(cuda, bad):
     assert torch.equal(buf[b * r * p:], guard)
 
 
+@pytest.mark.parametrize("bad", ["j_high", "j_negative", "p_high",
+                                 "p_negative"])
+def test_quantize_skips_a_table_entry_out_of_range(cuda, bad):
+    """A channel table of the right shape with one entry whose output
+    column (C or -1) or column of x (P or -1) is out of range: the kernel
+    skips that entry, and every other output column's codes, mins and maxs
+    equal the plain version's bit for bit. A kernel that followed the
+    output column would write row r+-1 of a valid column."""
+    gen = torch.Generator().manual_seed(19)
+    b, r, p, bits = 2, 64, 32, 8
+    sel = torch.tensor([9, 2, 14, 5, 30, 21], dtype=torch.int32, device=cuda)
+    c = sel.numel()
+    x = torch.randn((b, r, p), generator=gen).to(cuda)
+    order = quant_kernel.channel_order(sel).clone()
+    k = 1
+    j0 = int(order[k, 0])
+    field, value = {"j_high": (0, c), "j_negative": (0, -1),
+                    "p_high": (1, p), "p_negative": (1, -1)}[bad]
+    order[k, field] = value
+    got = quantize_fused(x, bits, sel, order=order)
+    torch.cuda.synchronize()
+    want = quantize_plain(x, bits, sel.long())
+    keep = [j for j in range(c) if j != j0]
+    for g, w in zip(got, want):
+        assert torch.equal(g[..., keep].view(torch.uint8),
+                           w[..., keep].view(torch.uint8))
+
+
 @pytest.mark.parametrize("s", [2, 256, 4096])
 @pytest.mark.parametrize("c", [1, 5, 64])
 @pytest.mark.parametrize("layout", ["rows", "cols"])
@@ -647,3 +675,43 @@ def test_kernels_count_their_launches(cuda):
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(_build.KERNELS, before)] == \
         [1, 1, 1, 1, 1, 1]
+
+
+def test_baf_loss_runs_the_quantize_kernel_once_a_call(cuda):
+    """The BaF training loss on the card quantizes through the kernel, one
+    launch a call, with the channel table computed once by make_baf_loss.
+    On the same z (so the same codes) its value and its BaF gradients
+    match the same loss on the CPU at 1e-3 (gradients: atol 1e-3 x the
+    leaf's largest |g|; float32 convolutions and their transposes summed in
+    another order, with cuDNN's TF32 off as in chip_smoke.py)."""
+    from repro_torch.core.baf import BaFConv, BaFConvConfig
+    from repro_torch.models.cnn import CNN, CNNConfig
+    from repro_torch.train.baf_trainer import baf_grads, make_baf_loss
+
+    cfg = CNNConfig(width_mult=0.25, input_size=64, num_classes=8,
+                    tail_res_blocks=1)
+    img = torch.randn((2, 64, 64, 3), generator=torch.Generator()
+                      .manual_seed(3))
+    z = CNN(cfg, seed=0, device="cpu").edge(img)[1]
+    sel = np.random.default_rng(4).permutation(cfg.split_p)[:16]
+    out = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            model = CNN(cfg, seed=0, device=dev)
+            baf = BaFConv(BaFConvConfig(c=16, q=cfg.split_q, hidden=16),
+                          seed=1, device=dev).requires_grad_(True)
+            loss_fn = make_baf_loss(model, sel, 8, device=dev)
+            before = _build.QUANTIZE.launches
+            loss, grads = baf_grads(baf, z.to(dev), loss_fn)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert _build.QUANTIZE.launches == before + 1
+            assert all(q.grad is None for q in model.parameters())
+            out.append([loss.cpu()] + [g.cpu() for g in grads.values()])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for a, b in zip(*out):
+        assert torch.allclose(a, b, rtol=1e-3, atol=1e-3 * float(
+            b.abs().max()))
