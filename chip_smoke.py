@@ -52,19 +52,42 @@ package ``repro``. Phases, each printing lines before the last:
      after, losses finite, logits finite; the steps' times, the selection
      time and the phase's peak memory; at smoke scale one pretraining step
      and one BaF step on the card against the same steps on the CPU;
-  6. qwen2-7b at its full published config (28 layers, bf16, random
+  6. the BaF serving gateway at the paper's full width (the same
+     full_config, float32, TF32 off, a bank of seeded BaF predictors for
+     C in {16, 32, 64}, hidden 64, each selecting the first C of one channel
+     order): the RD table from ``build_rd_table`` over 2 calibration images
+     at C x bits {4, 8}, rans, through ``load_or_build_rd_table`` in a
+     temporary directory (its launches printed apart); a ``ServingGateway``
+     with a ``RateController``, a metered ``SimulatedChannel`` and
+     max_batch 8 serving 16 requests: wall time and requests/s, the hooked
+     stage times, telemetry p50/p99, peak memory, the kernels' launches
+     over the serve alone (quantize and histogram once a request,
+     consolidate once a micro-batch of the telemetry), every response its
+     micro-batch's own row with the padding rows dropped, the most padded
+     micro-batch's fused restore against fused=False and its consolidate
+     bit for bit against the plain version, quantize and histogram on a
+     served z; the device's busy share of a profiled serve; then
+     ``gateway_demo`` part 7 at full width (gold/silver/bronze, a
+     48-request burst, two queues under ``LinearCostModel``, queue-depth
+     admission): served + shed = 48, the scheduler's grants equal the
+     containers' bits, a second run and a traced run give identical
+     telemetry, the spans sum to each latency within 1e-9 s and the Chrome
+     trace is valid; at smoke scale the gateway on the card against the
+     CPU with both edges given the CPU's z: wire bytes and RequestRecords
+     identical, logits within 1e-4;
+  7. qwen2-7b at its full published config (28 layers, bf16, random
      weights from a seed): B=2, a 512-token prefill (flash kernel, 28
      launches), the KV cache filled token by token, 16 greedy decode steps;
      prefill against the cache fill's last logits and against the same
      model with plain attention on the card;
-  7. rwkv6-3b at its full published config (32 layers): B=2, a 512-token
+  8. rwkv6-3b at its full published config (32 layers): B=2, a 512-token
      prefill (32 scan launches), a 4096-token long ingest in blocks of 1024
      (128 launches) held against one 4096-token prefill, 16 decode steps
      from the ingest state; the top kernels of a prefill, of the ingest
      and of a decode step;
-  8. both LMs at smoke scale in float32 from the same seeded weights: the
+  9. both LMs at smoke scale in float32 from the same seeded weights: the
      kernels on the card against the plain versions on the CPU;
-  9. times: each kernel's device time and device operations per call at
+ 10. times: each kernel's device time and device operations per call at
      its path's shapes (torch.profiler) beside its bound, its plain version
      and, where one PyTorch call computes the same function, that call; the
      histogram also on the path's own codes; cdf through the cdf path's
@@ -122,6 +145,11 @@ QWEN_B, QWEN_PROMPT, GEN = 2, 512, 16
 # batch, and the steps timed after it.
 TRAIN_STEPS, SELECT_BATCHES, OFFLINE_BATCH, TIMED_STEPS = 4, 2, 8, 5
 RWKV_B, RWKV_PROMPT, RWKV_LONG, RWKV_BLOCK = 2, 512, 4096, 1024
+# The serving gateway: the bank's C, the RD sweep's calibration images and
+# bits, the single-tenant requests and micro-batch cap, the overload burst.
+SERVE_BANK, SERVE_CALIB, SERVE_BITS = (16, 32, 64), 2, (4, 8)
+SERVE_N, SERVE_MAX_BATCH, BURST = 16, 8, 48
+GATEWAY_CPU_TOL = 1e-4           # smoke-scale gateway logits, card vs CPU
 
 
 def nvidia_smi_line() -> str:
@@ -675,10 +703,11 @@ def run_requests(dev, model, plan, imgs, registry):
     return blobs, decoded, z_tilde, logits, times
 
 
-def check_consolidate_on_path(dev, model, baf, sel_idx, decoded) -> float:
-    """The consolidate kernel against its plain version on the main path's
-    own estimate: one z~ of the decoded batch, before eq. (6), clipped by
-    each on its own copy. Bit for bit."""
+def check_consolidate_on_path(dev, model, baf, sel_idx, decoded, *,
+                              bits: int = BITS) -> float:
+    """The consolidate kernel against its plain version on a path's own
+    estimate: one z~ of the decoded batch, before eq. (6), clipped by each
+    on its own copy. Bit for bit."""
     import torch
     from repro_torch.core.split import restore_codes
     from repro_torch.kernels.consolidate import (consolidate_fused,
@@ -690,21 +719,22 @@ def check_consolidate_on_path(dev, model, baf, sel_idx, decoded) -> float:
     codes = torch.from_numpy(np.ascontiguousarray(decoded.codes)).to(dev)
     mins = torch.from_numpy(decoded.mins).to(dev)
     maxs = torch.from_numpy(decoded.maxs).to(dev)
-    est = restore_codes(baf, model.split, sel, codes, mins, maxs, bits=BITS,
+    est = restore_codes(baf, model.split, sel, codes, mins, maxs, bits=bits,
                         consolidation=False).contiguous()
     n, h, w, p = est.shape
+    c = codes.shape[-1]
     flat = est.view(n, h * w, p)
-    args = (codes.view(n, h * w, C), mins.view(n, C), maxs.view(n, C), BITS)
+    args = (codes.view(n, h * w, c), mins.view(n, c), maxs.view(n, c), bits)
     got = consolidate_fused(flat.clone(), *args, sel, order=order)
     want = consolidate_plain(flat.clone(), *args, sel.long())
     sync(dev)
     ok = bits_equal(got, want)
     err = max_abs_diff([(got, want)])
-    print(f"consolidate on the main path's z~ {tuple(est.shape)}: kernel vs "
-          f"plain {'bit-identical' if ok else 'DIFFERS'} (max abs diff "
-          f"{err!r})")
+    print(f"consolidate on the path's z~ {tuple(est.shape)}, C={c}, {bits} "
+          f"bits: kernel vs plain {'bit-identical' if ok else 'DIFFERS'} "
+          f"(max abs diff {err!r})")
     if not ok:
-        raise AssertionError("consolidate kernel differs on the main path")
+        raise AssertionError("consolidate kernel differs on the path")
     return err
 
 
@@ -1117,7 +1147,355 @@ def train_card_vs_cpu(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phases 6-8: the LM serving path at full width
+# Phase 6: the serving gateway at full width
+# ---------------------------------------------------------------------------
+
+def serving_system(dev, cfg, bank_c, hidden: int, seed: int = 0):
+    """The CNN and a BaF bank {c: (BaFConv, first c of one channel order)},
+    seeded (the initialisers draw on the CPU, so every device gets the same
+    weights)."""
+    from repro_torch.core.baf import BaFConv, BaFConvConfig
+    from repro_torch.models.cnn import CNN
+
+    model = CNN(cfg, seed=seed, device=dev).eval()
+    order = np.random.default_rng(seed + 2).permutation(cfg.split_p)
+    bank = {c: (BaFConv(BaFConvConfig(c=c, q=cfg.split_q, hidden=hidden),
+                        seed=seed + 1 + k, device=dev).eval(), order[:c])
+            for k, c in enumerate(bank_c)}
+    return model, bank
+
+
+def serving_images(cfg, n: int, seed: int) -> np.ndarray:
+    """n synthetic-shapes images at the config's size, as host numpy (the
+    gateway's input)."""
+    import torch
+    from repro_torch.data.synthetic import ShapesDatasetConfig, shapes_batch
+    data = ShapesDatasetConfig(image_size=cfg.input_size,
+                               num_classes=cfg.num_classes, batch_size=n)
+    return shapes_batch(data, seed, 0, torch.device("cpu"))[0].numpy()
+
+
+def watch_batches(executor) -> list:
+    """Record each micro-batch the executor runs: (batch, padded logits)."""
+    seen = []
+    submit = executor.submit
+
+    def watched(batch, t_ready, *, run_fn=None):
+        ticket = submit(batch, t_ready, run_fn=run_fn)
+        seen.append((batch, np.asarray(ticket.logits)))
+        return ticket
+    executor.submit = watched
+    return seen
+
+
+def serving_path(dev, smi: str) -> None:
+    """The BaF serving gateway at the paper's full width: the RD sweep, a
+    single-tenant ServingGateway under rate control, the multi-tenant
+    overload of gateway_demo part 7, then the gateway on the card against
+    the CPU at smoke scale."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch.configs.yolo_baf import full_config
+    from repro_torch.kernels import _build
+    from repro_torch.obs import MetricsRegistry, hooks
+    from repro_torch.serve import (ChannelConfig, RateController,
+                                   ServingGateway, SimulatedChannel,
+                                   build_rd_table, load_or_build_rd_table,
+                                   rd_grid, rd_table_to_json)
+
+    cfg = full_config()
+    model, bank = serving_system(dev, cfg, SERVE_BANK, HIDDEN)
+    print(f"serving: {cfg}, bank C={SERVE_BANK} (hidden {HIDDEN}), RD sweep "
+          f"over {SERVE_CALIB} calibration images at bits {SERVE_BITS}, rans; "
+          f"{SERVE_N} requests, max_batch {SERVE_MAX_BATCH}")
+    calib = serving_images(cfg, SERVE_CALIB, 31)
+    ops = rd_grid(bank, SERVE_BITS, "rans")
+    key = {"calib": SERVE_CALIB, "input": cfg.input_size}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = Path(tmp) / "rd_cache.json"
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        table = load_or_build_rd_table(
+            cache, key,
+            lambda: build_rd_table(model, bank, calib, ops=ops, device=dev),
+            ops=ops)
+        sweep_s = time.perf_counter() - t0
+        sweep = launch_counts()
+        hit = json.dumps(rd_table_to_json(load_or_build_rd_table(
+            cache, key, lambda: None, ops=ops))) == \
+            json.dumps(rd_table_to_json(table))
+    print(f"RD sweep: {sweep_s!r} s, launches {sweep} (apart from the "
+          f"serve's); the cache read back gives the same table: {hit}")
+    for p in table:
+        print(f"  C={p.op.c:<3} bits={p.op.bits}: {p.bits_per_example!r} "
+              f"wire bits/image, PSNR {p.psnr_db!r} dB, KL {p.kl!r}")
+    if len(table) != len(ops) or not hit or not all(
+            np.isfinite([p.psnr_db, p.kl, p.bits_per_example]).all()
+            for p in table):
+        raise AssertionError("RD sweep failed")
+    if sweep["quantize"] < len(ops) * SERVE_CALIB or \
+            sweep["histogram"] != sweep["quantize"]:
+        raise AssertionError(f"the RD sweep's encodes skipped a kernel: "
+                             f"{sweep}")
+
+    floor = float(np.median([p.psnr_db for p in table]))
+    budget = int(np.median([p.bits_per_example for p in table]) * 3)
+    imgs = serving_images(cfg, SERVE_N, 41)
+    times = [0.01 * i for i in range(SERVE_N)]
+    gw = ServingGateway(
+        model, bank, controller=RateController(table, quality_floor_db=floor),
+        channel=SimulatedChannel(ChannelConfig(
+            bandwidth_bps=100e6, base_latency_s=0.01, tick_s=0.05,
+            budget_bits_per_tick=budget)),
+        max_batch=SERVE_MAX_BATCH, device=dev)
+    gw.serve(imgs, submit_times=times)           # warm-up, same shapes
+    gw.channel.reset()
+    seen = watch_batches(gw.executor)
+    registry = MetricsRegistry()
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    _build.reset_launches()
+    with hooks.active(registry):
+        t0 = time.perf_counter()
+        resp, tel = gw.serve(imgs, submit_times=times)
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_batches = round(sum(1.0 / r.batch_size for r in tel.records))
+    print(f"single-tenant serve launches: {launches}; micro-batches in the "
+          f"telemetry {n_batches}, executor tickets {len(seen)}, sizes "
+          f"{[(len(b.requests), b.padded_size) for b, _ in seen]}")
+    want = {"quantize": SERVE_N, "histogram": SERVE_N,
+            "consolidate": n_batches}
+    if {k: v for k, v in launches.items() if v} != want or \
+            n_batches != len(seen):
+        raise AssertionError(f"the serve launched {launches}, not {want}")
+
+    # checks, after the counts were read
+    summ = tel.summary(wall_s=wall)
+    stages = {}
+    for name, labels, m in registry.collect():
+        if name == "stage_seconds":
+            stages[labels["stage"]] = (m.count, m.total)
+    print(f"single tenant ({smi}): {SERVE_N} requests in {wall!r} s wall, "
+          f"{SERVE_N / wall!r} requests/s; telemetry p50 "
+          f"{summ['p50_latency_s'] * 1e3!r} ms, p99 "
+          f"{summ['p99_latency_s'] * 1e3!r} ms (virtual clock: channel plus "
+          f"measured compute), p50 compute {summ['p50_compute_s'] * 1e3!r} "
+          f"ms; operating points {summ['operating_points']}; mean wire "
+          f"bits {summ['mean_bits_on_wire']!r}; peak memory "
+          f"{peak / 1e9!r} GB, of which {(peak - held) / 1e9!r} GB above "
+          f"what earlier phases still held")
+    for stage, (count, total) in sorted(stages.items()):
+        print(f"  hooked stage {stage}: {count} calls, {total * 1e3!r} ms "
+              f"host clock in all, {total / count * 1e3!r} ms a call")
+    check_served(resp, seen, cfg.num_classes, SERVE_N)
+    check_batch_on_path(dev, gw, seen, imgs)
+
+    def run():
+        t0 = time.perf_counter()
+        gw.serve(imgs, submit_times=times)
+        sync(dev)
+        return time.perf_counter() - t0
+    gw.channel.reset()
+    rows, pwall = _device_rows(run, [ProfilerActivity.CUDA])
+    busy = sum(r[0] for r in rows) / 1e6
+    rows.sort(reverse=True)
+    print(f"single-tenant serve under the profiler: device busy {busy * 1e3!r}"
+          f" ms of {pwall * 1e3!r} ms wall (busy share {busy / pwall!r}); "
+          f"top: " + "; ".join(f"{k[:50]} {us / 1e3!r} ms"
+                               for us, k, _ in rows[:6]))
+    overload_path(dev, model, bank, cfg)
+    gateway_card_vs_cpu(dev)
+
+
+def check_served(resp, seen, num_classes: int, n: int) -> None:
+    """Every request answered once, with its own row of its micro-batch's
+    logits (padding rows dropped), finite, of the model's width."""
+    rows = {}
+    for batch, logits in seen:
+        if logits.shape[0] != batch.padded_size:
+            raise AssertionError(f"batch of {len(batch.requests)} padded to "
+                                 f"{batch.padded_size} gave {logits.shape}")
+        for i, r in enumerate(batch.requests):
+            rows[r.req_id] = logits[i]
+    if len(resp) != n or sorted(rows) != list(range(n)):
+        raise AssertionError("a request was not answered exactly once")
+    for r in resp:
+        if r.logits.shape != (num_classes,) or \
+                not np.isfinite(r.logits).all() or \
+                not np.array_equal(r.logits, rows[r.req_id]):
+            raise AssertionError(f"request {r.req_id}: bad logits")
+    print(f"{n} responses, one each, logits ({num_classes},) finite, each its "
+          f"micro-batch's own row; padded rows dropped: yes")
+
+
+def check_batch_on_path(dev, gw, seen, imgs) -> None:
+    """The most padded micro-batch of the serve, again: its fused restore
+    against the fused=False plan's (RESTORE_TOL), the consolidate kernel
+    bit for bit against its plain version on its own estimate, and the
+    quantize and histogram kernels on its first request's z."""
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.kernels.histogram import histogram, histogram_plain
+    from repro_torch.kernels.quantize import quantize_fused, quantize_plain
+
+    batch = max((b for b, _ in seen), key=lambda b: b.pad)
+    op = batch.key.op
+    plan = gw.plan_for(op)
+    spec = gw._specs[op.c]
+    ref = pipeline.compile(op, spec, fused=False, device=dev)
+    decoded = plan.decode_batch([r.blob for r in batch.requests]) \
+        .pad_to(batch.padded_size)
+    got, want = plan.restore(decoded), ref.restore(decoded)
+    diff = float((got - want).abs().max())
+    baf, sel = gw.baf_bank[op.c]
+    err = check_consolidate_on_path(dev, gw.params, baf, sel, decoded,
+                                    bits=op.bits)
+    print(f"micro-batch of {len(batch.requests)} padded to "
+          f"{batch.padded_size} at {op}: fused vs fused=False restore max abs "
+          f"diff {diff!r}; consolidate kernel vs plain max abs diff {err!r}")
+    if not torch.allclose(got, want, rtol=RESTORE_TOL, atol=RESTORE_TOL):
+        raise AssertionError("fused and plain restore disagree")
+    z = gw._edge_fn(gw._to_device(imgs[batch.requests[0].req_id]))
+    n, h, w, p = z.shape
+    sel_t = torch.as_tensor(np.asarray(sel, np.int32), device=dev)
+    q = quantize_fused(z.contiguous().view(n, h * w, p), op.bits, sel_t)
+    qp = quantize_plain(z.contiguous().view(n, h * w, p), op.bits,
+                        sel_t.long())
+    codes = q[0].view(h * w, op.c)
+    hk, hp = histogram(codes, 1 << op.bits), histogram_plain(codes,
+                                                             1 << op.bits)
+    sync(dev)
+    same = all(bits_equal(a, b) for a, b in zip(q, qp)) and \
+        bool(torch.equal(hk, hp))
+    print(f"quantize and histogram kernels on a served request's z at {op}: "
+          f"{'identical to' if same else 'DIFFER from'} their plain versions")
+    if not same:
+        raise AssertionError("kernels differ on the serving path")
+
+
+def overload_path(dev, model, bank, cfg) -> None:
+    """gateway_demo part 7 at full width: gold/silver/bronze, a 3x burst
+    against two queues on a deterministic cost model, queue-depth admission
+    by priority. Every request ends served or shed; the scheduler's grants
+    are the containers' bits; a second run replays the telemetry; a traced
+    run gives the same telemetry, spans that sum to each latency and a
+    valid Chrome trace. A full-width container is ~300x the demo's 32x32
+    one, so each tenant's link runs at 1 Gbit/s, not the demo's 50 Mbit/s:
+    the burst then overloads the cloud, as in the demo, and not the
+    links."""
+    from repro_torch.obs import Tracer, reconcile_trace, validate_chrome_trace
+    from repro_torch.pipeline import OperatingPoint
+    from repro_torch.serve import (ChannelConfig, LinearCostModel,
+                                   MultiQueueExecutor, MultiTenantGateway,
+                                   QueueDepthAdmission, TenantRequest,
+                                   TenantSpec, priority_depth_limits)
+
+    tiers = [TenantSpec("gold", weight=2.0, priority=2),
+             TenantSpec("silver", priority=1),
+             TenantSpec("bronze", priority=0)]
+    gw = MultiTenantGateway(
+        model, bank, tenants=tiers,
+        channel_cfg=ChannelConfig(bandwidth_bps=1e9, base_latency_s=0.001),
+        default_op=OperatingPoint(c=min(bank), bits=8, backend="rans"),
+        max_batch=4, batch_window_s=0.002,
+        executor=MultiQueueExecutor(2, cost=LinearCostModel(
+            base_s=0.004, per_item_s=0.001)),
+        admission=QueueDepthAdmission(2, per_priority=priority_depth_limits(
+            2, [0, 1, 2], headroom=2)), device=dev)
+    stream = serving_images(cfg, 8, 7)
+    burst = [TenantRequest(("gold", "silver", "bronze")[i % 3],
+                           stream[i % len(stream)], t_submit=i / 3000.0)
+             for i in range(BURST)]
+    t0 = time.perf_counter()
+    resp, tel = gw.serve_tenants(burst)
+    wall = time.perf_counter() - t0
+    served = {t: sum(not r.shed for r in rs) for t, rs in resp.items()}
+    shed = tel.shed_by_tenant()
+    sched = gw.last_scheduler
+    grants = {t: q.granted_bits for t, q in sched.tenants.items()}
+    wire = {t: sum(r.bits_on_wire for r in tel.records if r.tenant == t)
+            for t in grants}
+    print(f"overload ({BURST}-request burst, {wall!r} s wall): served "
+          f"{served}, shed {shed}; scheduler grants {grants} bits, the "
+          f"served containers {wire} bits")
+    print(tel.format_summary())
+    if sum(served.values()) + len(tel.shed) != BURST or grants != wire or \
+            shed.get("bronze", 0) < shed.get("gold", 0) or not tel.shed:
+        raise AssertionError("overload: a silent drop, a grant that is not "
+                             "the container's bits, or no brown-out")
+    again = gw.serve_tenants(burst)[1]
+    gw.tracer = Tracer()
+    traced = gw.serve_tenants(burst)[1]
+    err = reconcile_trace(gw.tracer, traced)
+    events = validate_chrome_trace(gw.tracer.to_chrome())
+    gw.tracer.validate()
+    same = again.records == tel.records and again.shed == tel.shed and \
+        traced.records == tel.records and traced.shed == tel.shed
+    print(f"overload replayed: telemetry identical {same}; traced run: "
+          f"{len(gw.tracer)} spans, {events} Chrome trace events (valid), "
+          f"span sums against latencies max error {err!r} s")
+    if not same or err > 1e-9:
+        raise AssertionError("overload replay or trace check failed")
+
+
+def gateway_card_vs_cpu(dev) -> None:
+    """At smoke scale the same gateway on the card and on the CPU: both
+    edges pinned to the CPU's z, LinearCostModel, a rate controller over
+    a table swept on the CPU. Wire bytes and RequestRecords identical,
+    logits within GATEWAY_CPU_TOL."""
+    import torch
+    from repro_torch.configs.yolo_baf import smoke_config
+    from repro_torch.serve import (ChannelConfig, LinearCostModel,
+                                   RateController, SerialExecutor,
+                                   ServingGateway, SimulatedChannel,
+                                   build_rd_table)
+
+    cpu = torch.device("cpu")
+    cfg = smoke_config()._replace(input_size=64)
+    imgs = serving_images(cfg, 8, 53)
+    cmodel, cbank = serving_system(cpu, cfg, (4, 8), 16)
+    zs = {im.tobytes(): cmodel.edge(torch.from_numpy(im[None]))[1]
+          for im in imgs}
+    table = build_rd_table(cmodel, cbank, imgs[:2], bits_sweep=(4, 8),
+                           backend="rans", device=cpu)
+    budget = int(sorted(p.bits_per_example for p in table)[2])
+    runs = []
+    for d in (dev, cpu):
+        model, bank = (cmodel, cbank) if d == cpu else \
+            serving_system(d, cfg, (4, 8), 16)
+        gw = ServingGateway(
+            model, bank, max_batch=4, device=d,
+            controller=RateController(table, quality_floor_db=0.0),
+            channel=SimulatedChannel(ChannelConfig(
+                bandwidth_bps=2e6, tick_s=0.004,
+                budget_bits_per_tick=budget)),
+            executor=SerialExecutor(cost=LinearCostModel()))
+        gw._edge_fn = lambda img, d=d: zs[img.cpu().numpy().tobytes()].to(d)
+        seen = watch_batches(gw.executor)
+        resp, tel = gw.serve(imgs, submit_times=[0.002 * i for i in range(8)])
+        runs.append(([r.blob.data for b, _ in seen for r in b.requests],
+                     tel.records, np.stack([r.logits for r in resp])))
+    (wire, recs, logits), (cwire, crecs, clogits) = runs
+    diff = float(np.abs(logits - clogits).max())
+    ops = sorted({(r.c, r.bits) for r in recs})
+    print(f"gateway card vs CPU at smoke scale ({cfg.input_size}x"
+          f"{cfg.input_size}, C 4 and 8, 8 requests, operating points "
+          f"{ops}): wire bytes identical {wire == cwire}, RequestRecords "
+          f"identical {recs == crecs}; logits max abs diff {diff!r} "
+          f"(tolerance {GATEWAY_CPU_TOL} relative and absolute)")
+    if wire != cwire or recs != crecs or not np.allclose(
+            logits, clogits, rtol=GATEWAY_CPU_TOL, atol=GATEWAY_CPU_TOL):
+        raise AssertionError("the gateway disagrees between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-9: the LM serving path at full width
 # ---------------------------------------------------------------------------
 
 def _argmax_tokens(logits):
@@ -1453,7 +1831,7 @@ def lms_card_vs_cpu(dev) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: kernel times
+# Phase 10: kernel times
 # ---------------------------------------------------------------------------
 
 def timed(fn):
@@ -1714,6 +2092,7 @@ def main() -> int:
     launches = dict(res["launches"])
     launches["cdf"] = cdf_path(dev, res["decoded"])["cdf"]
     offline_path(dev, smi)
+    serving_path(dev, smi)
     qwen = qwen_path(dev)
     rwkv = rwkv_path(dev)
     launches["flash_attention"] = qwen["launches"]["flash_attention"]

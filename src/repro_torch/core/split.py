@@ -3,19 +3,49 @@
 
 Counterpart of ``repro/core/split.py``. The coding configuration lives in
 ``repro_torch.pipeline`` (``OperatingPoint`` -> ``compile`` ->
-``CompressionPlan``); this module holds the device-side restore functions
-and ``SplitInferenceEngine``, the one-operating-point wrapper over a plan.
+``CompressionPlan``); this module holds the device-side restore functions,
+the fidelity metrics the rate controller's RD sweep reads, and
+``SplitInferenceEngine``, the one-operating-point wrapper over a plan.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from repro_torch import nn as tnn
 from repro_torch.core.baf import baf_conv_predict
-from repro_torch.core.quant import QuantParams, dequantize
+from repro_torch.core.quant import (QuantParams, compute_quant_params,
+                                    dequantize, quantize)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.consolidate import consolidate_fused
+
+
+@dataclass(frozen=True)
+class ActivationStats:
+    """Cheap per-request content descriptor of the selected split channels.
+
+    The quantizer step scales with the content's dynamic range and the PSNR
+    peak follows the content's peak, so these two numbers are enough for the
+    rate controller to shift calibration-time RD-table PSNRs toward *this*
+    request (``serve/rate_control.py`` ``ContentKeyedController``).
+    """
+    peak: float          # max |z_sel| over the example
+    dyn_range: float     # mean over channels of per-channel (max - min)
+
+
+def activation_stats(z, sel_idx) -> ActivationStats:
+    """O(HWC) statistics of ``z[..., sel_idx]`` on the host, in numpy as the
+    JAX package computes them. z: (B, H, W, P) numpy or tensor (copied to
+    the host); stats are aggregated over the whole array."""
+    if isinstance(z, torch.Tensor):
+        z = z.detach().cpu().numpy()
+    z_sel = np.asarray(z)[..., np.asarray(sel_idx)]
+    flat = z_sel.reshape(-1, z_sel.shape[-1]).astype(np.float32)
+    peak = float(np.max(np.abs(flat))) if flat.size else 0.0
+    rng = float(np.mean(np.max(flat, 0) - np.min(flat, 0))) if flat.size else 0.0
+    return ActivationStats(peak=peak, dyn_range=rng)
 
 
 @dataclass
@@ -72,6 +102,66 @@ def restore_codes_fused(baf, split, sel_idx, codes, mins, maxs, *,
     return z_tilde
 
 
+def check_device(device: torch.device, **modules) -> None:
+    """Raise unless every module's weights live on ``device``."""
+    for name, mod in modules.items():
+        dev = next(mod.parameters()).device
+        if dev != device:
+            raise ValueError(f"{name} lives on {dev}, the caller runs on "
+                             f"{device}")
+
+
+def to_device(x, device) -> torch.Tensor:
+    """A numpy array (copied) or tensor as float32 on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x, np.float32))
+    return x.to(device, torch.float32)
+
+
+def cnn_fns(model):
+    """The CNN's halves as the serving path calls them, bound once:
+    ``edge(img) -> z`` and ``cloud(z) -> logits`` (the counterpart of the JAX
+    package's cached jitted pair; no compilation here)."""
+    return (lambda img: model.edge(img)[1]), model.cloud
+
+
+@torch.no_grad()
+def fidelity_metrics(model, baf, sel_idx, img, *, bits: int,
+                     consolidation: bool = True, z=None, device=None):
+    """Continuous restoration metrics at one (C, bits) operating point.
+
+    (psnr_db of leaky(z~) against leaky(z), mean KL(cloud || split) of the
+    downstream logits), computed as ``repro.core.split.fidelity_metrics``
+    does: per-example side info, the plain quantizer and the ``fused=False``
+    restore, in float32 on ``device`` (``None`` = the card), where ``model``
+    and ``baf`` must live. ``img`` (B, H, W, 3) and ``z`` (a precomputed
+    split activation that skips the edge forward) may be numpy or tensors.
+    """
+    dev = resolve_device(device)
+    check_device(dev, model=model, baf=baf)
+    edge, cloud = cnn_fns(model)
+    sel = torch.as_tensor(np.asarray(sel_idx, np.int32), device=dev)
+    if z is None:
+        z = edge(to_device(img, dev))
+    else:
+        z = to_device(z, dev)
+    z_sel = z[..., sel.long()]
+    qp = compute_quant_params(z_sel, bits, per_example=True)
+    z_tilde = restore_codes(baf, model.split, sel, quantize(z_sel, qp),
+                            qp.mins, qp.maxs, bits=bits,
+                            consolidation=consolidation)
+    y_true = tnn.leaky_relu(z).float()
+    y_rest = tnn.leaky_relu(z_tilde).float()
+    mse = float(torch.mean(torch.square(y_true - y_rest)))
+    peak = float(torch.max(torch.abs(y_true))) or 1.0
+    psnr = 10.0 * np.log10(peak * peak / max(mse, 1e-12))
+    p_cloud = torch.log_softmax(cloud(z).float(), dim=-1)
+    p_split = torch.log_softmax(cloud(z_tilde).float(), dim=-1)
+    kl = float(torch.mean(torch.sum(torch.exp(p_cloud)
+                                    * (p_cloud - p_split), -1)))
+    return psnr, kl
+
+
 class SplitInferenceEngine:
     """The paper's mobile/cloud pipeline for the Tier-A CNN at one point.
 
@@ -85,11 +175,7 @@ class SplitInferenceEngine:
                  device=None):
         from repro_torch import pipeline                 # lazy: avoid cycle
         self.device = resolve_device(device)
-        for name, mod in (("model", model), ("baf", baf)):
-            dev = next(mod.parameters()).device
-            if dev != self.device:
-                raise ValueError(f"{name} lives on {dev}, engine runs on "
-                                 f"{self.device}")
+        check_device(self.device, model=model, baf=baf)
         self.model = model
         self.baf = baf
         self.op = pipeline.OperatingPoint(c=len(sel_idx), bits=bits,
@@ -109,6 +195,13 @@ class SplitInferenceEngine:
     def decode_and_infer(self, blob) -> torch.Tensor:
         """Decode + BaF restore + cloud forward -> logits."""
         return self.model.cloud(self.plan.restore(self.plan.decode(blob)))
+
+    def fidelity(self, img):
+        """Continuous restoration metrics; see :func:`fidelity_metrics`."""
+        return fidelity_metrics(self.model, self.baf, self.spec.sel_idx, img,
+                                bits=self.op.bits,
+                                consolidation=self.plan.consolidation,
+                                device=self.device)
 
     def __call__(self, img):
         blob, stats = self.encode(img)

@@ -14,10 +14,12 @@ from repro_torch.pipeline.op import (WIRE_PROFILE_VERSION, Capabilities,
                                      NegotiationError, OperatingPoint,
                                      negotiate)
 from repro_torch.pipeline.plan import (CompressionPlan, DecodedBatch,
-                                       ModelSpec, WireBlob, compile)
+                                       ModelSpec, WireBlob, blob_from_tensor,
+                                       compile)
 
 __all__ = [
     "WIRE_PROFILE_VERSION", "Capabilities", "NegotiationError",
     "OperatingPoint", "negotiate",
-    "CompressionPlan", "DecodedBatch", "ModelSpec", "WireBlob", "compile",
+    "CompressionPlan", "DecodedBatch", "ModelSpec", "WireBlob",
+    "blob_from_tensor", "compile",
 ]

@@ -28,7 +28,7 @@ import torch
 from repro_torch.core import codec as wire
 from repro_torch.core.quant import QuantParams
 from repro_torch.core.split import (SplitStats, restore_codes,
-                                    restore_codes_fused)
+                                    restore_codes_fused, to_device)
 from repro_torch.core.tiling import tile_batch, tile_grid, untile_batch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.histogram import MAX_NSYM, histogram
@@ -66,6 +66,10 @@ class WireBlob:
     def nbytes(self) -> int:
         return len(self.data)
 
+    def to_tensor(self) -> wire.EncodedTensor:
+        """Parse back to the wire-format view (header validation included)."""
+        return wire.EncodedTensor.from_bytes(self.data)
+
 
 @dataclass
 class DecodedBatch:
@@ -73,6 +77,23 @@ class DecodedBatch:
     codes: np.ndarray            # (N, H, W, C) integer codes
     mins: np.ndarray             # (N, 1, 1, C) fp16
     maxs: np.ndarray             # (N, 1, 1, C) fp16
+
+    def __len__(self) -> int:
+        return self.codes.shape[0]
+
+    def pad_to(self, target: int) -> "DecodedBatch":
+        """Pad to a bucket size by repeating the last row (its outputs are
+        dropped after the restore); the card sees only bucket shapes."""
+        n = len(self)
+        if target < n:
+            raise ValueError(f"cannot pad {n} rows down to {target}")
+        if target == n:
+            return self
+        reps = [1] * n
+        reps[-1] += target - n
+        return DecodedBatch(codes=np.repeat(self.codes, reps, axis=0),
+                            mins=np.repeat(self.mins, reps, axis=0),
+                            maxs=np.repeat(self.maxs, reps, axis=0))
 
 
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
@@ -121,11 +142,16 @@ class CompressionPlan:
         self._order = channel_order(self._sel)   # the kernels' table
         wire.backend_wants_tiling(self.op.wire_backend)
 
+    @property
+    def trace_key(self) -> tuple:
+        """What the restore's shapes and code path depend on (plus the batch
+        bucket supplied at call time): plans with equal keys run the same
+        kernels at the same shapes."""
+        return (self.op.c, self.op.bits, self.fused, self.consolidation)
+
     def to_device(self, x) -> torch.Tensor:
         """A numpy array (copied) or tensor as float32 on the plan's device."""
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.array(x, dtype=np.float32))
-        return x.to(self.device, torch.float32)
+        return to_device(x, self.device)
 
     # -- encode (edge side) -------------------------------------------------
     def _quantize(self, z):
@@ -261,6 +287,24 @@ class CompressionPlan:
     def __repr__(self) -> str:
         return (f"CompressionPlan(op={self.op}, fused={self.fused}, "
                 f"consolidation={self.consolidation}, device={self.device})")
+
+
+def blob_from_tensor(enc: wire.EncodedTensor, op: OperatingPoint,
+                     batch: int) -> WireBlob:
+    """Wrap a parsed wire tensor as a plan blob.
+
+    The container's ``shape`` field stores the coded *stream* shape (the
+    tiled 2D image for image-style backends), so the codes shape is
+    rebuilt from the operating point's tiling grid.
+    """
+    rop = op.resolve()
+    if rop.tiling == "tiled":
+        rows, cols = tile_grid(rop.c)
+        th, tw = enc.shape
+        shape = (batch, th // (batch * rows), tw // cols, rop.c)
+    else:
+        shape = tuple(enc.shape)
+    return WireBlob(data=enc.to_bytes(), op=rop, shape=shape)
 
 
 def compile(op: OperatingPoint, model_spec: ModelSpec, *,   # noqa: A001

@@ -715,3 +715,65 @@ def test_baf_loss_runs_the_quantize_kernel_once_a_call(cuda):
     for a, b in zip(*out):
         assert torch.allclose(a, b, rtol=1e-3, atol=1e-3 * float(
             b.abs().max()))
+
+
+def test_serving_gateway_on_the_card_matches_the_cpu(cuda):
+    """A 4-request ServingGateway on the card (max_batch 3: micro-batches of
+    3 and 1): one quantize and one histogram launch a request, one
+    consolidate launch a micro-batch; wire bytes and telemetry records
+    equal the CPU gateway's for the same z (both edges pinned to the CPU's
+    z), logits within 1e-3 (cuDNN's TF32 off)."""
+    from repro_torch import pipeline
+    from repro_torch.core.baf import BaFConv, BaFConvConfig
+    from repro_torch.models.cnn import CNN, CNNConfig
+    from repro_torch.serve import (ChannelConfig, LinearCostModel,
+                                   SerialExecutor, ServingGateway,
+                                   SimulatedChannel)
+
+    cfg = CNNConfig(width_mult=0.25, input_size=64, num_classes=8,
+                    tail_res_blocks=1)
+    imgs = np.random.default_rng(6).normal(size=(4, 64, 64, 3)) \
+        .astype(np.float32)
+    sel = np.random.default_rng(7).permutation(cfg.split_p)[:16]
+    cpu_model = CNN(cfg, seed=0, device="cpu")
+    zs = {im.tobytes(): cpu_model.edge(torch.from_numpy(im[None]))[1]
+          for im in imgs}
+    runs = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            model = CNN(cfg, seed=0, device=dev)
+            baf = BaFConv(BaFConvConfig(c=16, q=cfg.split_q, hidden=16),
+                          seed=1, device=dev)
+            gw = ServingGateway(
+                model, {16: (baf, sel)}, max_batch=3,
+                default_op=pipeline.OperatingPoint(c=16, bits=8,
+                                                   backend="rans"),
+                channel=SimulatedChannel(ChannelConfig(bandwidth_bps=1e6)),
+                executor=SerialExecutor(cost=LinearCostModel()), device=dev)
+            gw._edge_fn = lambda img, d=dev: \
+                zs[img.cpu().numpy().tobytes()].to(d)
+            wire, sizes = [], []
+            submit = gw.executor.submit
+
+            def watched(batch, t, *, run_fn=None, wire=wire, sizes=sizes,
+                        submit=submit):
+                wire.extend(r.blob.data for r in batch.requests)
+                sizes.append(len(batch.requests))
+                return submit(batch, t, run_fn=run_fn)
+            gw.executor.submit = watched
+            before = [k.launches for k in _build.KERNELS]
+            resp, tel = gw.serve(imgs)
+            launches = {k.name: k.launches - b
+                        for k, b in zip(_build.KERNELS, before)}
+            runs.append((wire, sizes, tel.records,
+                         np.stack([r.logits for r in resp]), launches))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (wire, sizes, recs, logits, launches), (cwire, csizes, crecs, clogits,
+                                            _) = runs
+    assert wire == cwire and sizes == csizes == [3, 1] and recs == crecs
+    assert launches == {"quantize": 4, "histogram": 4, "consolidate": 2,
+                        "cdf": 0, "flash_attention": 0, "linear_scan": 0}
+    np.testing.assert_allclose(logits, clogits, rtol=1e-3, atol=1e-3)

@@ -16,13 +16,14 @@ import sys
 from pathlib import Path
 
 import jax  # noqa: F401  (both frameworks load in one test process)
+import numpy as np
 import pytest
 import torch
 
-from repro_torch import pipeline
+from repro_torch import pipeline, serve
 from repro_torch.configs.yolo_baf import smoke_config
 from repro_torch.core.baf import BaFConv, BaFConvConfig
-from repro_torch.core.split import SplitInferenceEngine
+from repro_torch.core.split import SplitInferenceEngine, fidelity_metrics
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import CNN
 
@@ -63,7 +64,9 @@ def test_port_imports_nothing_of_jax_or_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["leaked"] == []
     for name in ("repro_torch.kernels.quantize", "repro_torch.codec.rans",
-                 "repro_torch.pipeline.plan", "repro_torch.bridge"):
+                 "repro_torch.pipeline.plan", "repro_torch.bridge",
+                 "repro_torch.serve.gateway", "repro_torch.obs.trace",
+                 "repro_torch.launch.gateway_demo"):
         assert name in res["modules"]
 
 
@@ -111,6 +114,16 @@ def test_device_none_means_the_card():
             call()
     model = CNN(cfg, device="cpu")
     baf = BaFConv(BaFConvConfig(c=8, q=cfg.split_q, hidden=8), device="cpu")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        SplitInferenceEngine(model, baf, list(range(8)))
+    bank = {8: (baf, list(range(8)))}
+    img = np.zeros((1, 32, 32, 3), np.float32)
+    for call in [
+        lambda: SplitInferenceEngine(model, baf, list(range(8))),
+        lambda: serve.ServingGateway(model, bank),
+        lambda: serve.MultiTenantGateway(model, bank,
+                                         tenants=[serve.TenantSpec("a")]),
+        lambda: serve.build_rd_table(model, bank, img),
+        lambda: fidelity_metrics(model, baf, list(range(8)), img, bits=8),
+    ]:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
     assert resolve_device("cpu") == torch.device("cpu")
