@@ -7,7 +7,9 @@ params)``); this module never imports JAX. Conv kernels go from HWIO to
 OIHW; BN statistics, PReLU slopes and dense weights are copied as they are.
 LM params keep the JAX (in, out) weight layout; their layers, stacked on a
 leading axis by the JAX package, go one slice to each layer module, and
-each leaf is cast to the dtype its module stores it in.
+each leaf is cast to the dtype its module stores it in. Task heads keep
+the JAX param tree's names; their dense layers' ``w``/``b`` go to
+``weight``/``bias``.
 """
 from __future__ import annotations
 
@@ -16,8 +18,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.baf import BaFConv, BaFConvConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.cnn import CNN, CNNConfig
 from repro_torch.models.lm import LM
+from repro_torch.nn import Dense
+from repro_torch.tasks.heads import HeadConfig, get_head
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -70,15 +75,22 @@ def baf_from_jax(params, cfg: BaFConvConfig, *, device=None) -> BaFConv:
     return model
 
 
-def _load_tree(module: torch.nn.Module, tree: dict, index=None) -> None:
-    """Copy a param dict into the same-named attributes of ``module``,
-    taking slice ``index`` of every leaf when the layers are stacked."""
+def _load_tree(module: torch.nn.Module, tree: dict, index=None) -> int:
+    """Copy a param dict into the same-named attributes of ``module`` (a
+    dense layer's ``w``/``b`` into its ``weight``/``bias``), taking slice
+    ``index`` of every leaf when the layers are stacked; returns the number
+    of leaves copied."""
+    n = 0
     for key, val in tree.items():
         dst = getattr(module, key)
+        if isinstance(dst, Dense):
+            val = {"weight": val["w"], "bias": val["b"]}
         if isinstance(val, dict):
-            _load_tree(dst, val, index)
+            n += _load_tree(dst, val, index)
         else:
             _copy(dst, val if index is None else np.asarray(val)[index])
+            n += 1
+    return n
 
 
 def lm_from_jax(params, cfg: ArchConfig, *, device=None) -> LM:
@@ -91,3 +103,17 @@ def lm_from_jax(params, cfg: ArchConfig, *, device=None) -> LM:
     _load_tree(model, {k: v for k, v in params.items() if k != "layers"})
     return model
 
+
+def heads_from_jax(head_bank: dict, cfg: HeadConfig, *, device=None) -> dict:
+    """JAX ``init_head_bank`` bank (numpy leaves) -> the port's bank
+    ``{task: head module}`` on ``device`` (``None`` = the card)."""
+    dev = resolve_device(device)
+    out = {}
+    for name, tree in head_bank.items():
+        module = get_head(name).init(None, cfg)
+        n = _load_tree(module, tree)
+        if n != len(list(module.parameters())):
+            raise ValueError(f"head {name!r}: {n} leaves for "
+                             f"{len(list(module.parameters()))} weights")
+        out[name] = module.to(dev)
+    return out

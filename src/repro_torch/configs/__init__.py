@@ -2,9 +2,9 @@
 
 ``get_config(arch_id)`` returns the full published config and
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests,
-as ``repro.configs`` does. The port has the dense and ssm archs of the
-serving slice so far; the others raise and name the ROADMAP step that
-brings them.
+as ``repro.configs`` does. The port has the dense and ssm archs so far
+(``PORTED``); the others raise and name the ROADMAP step that brings
+them.
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ ARCH_IDS = [
     "rwkv6_3b", "qwen2_72b", "starcoder2_15b", "nemotron4_15b", "qwen2_7b",
     "whisper_tiny", "pixtral_12b", "olmoe_1b_7b", "arctic_480b", "zamba2_1p2b",
 ]
-PORTED = ("qwen2_7b", "rwkv6_3b")
+PORTED = ("qwen2_7b", "rwkv6_3b", "starcoder2_15b", "nemotron4_15b",
+          "qwen2_72b")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIASES.update({

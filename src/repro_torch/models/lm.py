@@ -3,7 +3,8 @@ one-token decode.
 
 Counterpart of ``repro/models/lm.py``:
 
-  dense -- pre-norm GQA attention + FFN blocks (qwen2-7b)
+  dense -- pre-norm GQA attention + FFN blocks (qwen2-7b, qwen2-72b,
+           starcoder2-15b, nemotron-4-15b)
   ssm   -- RWKV-6 blocks, attention-free (rwkv6-3b)
 
 The JAX package stacks the layers on a leading axis and scans them; here

@@ -10,16 +10,19 @@ executable plans, as in ``repro.pipeline``.
     decoded = plan.decode_batch([blob, ...]) # vectorized host decode
     z_tilde = plan.restore(decoded)          # BaF restore + consolidation
 """
-from repro_torch.pipeline.op import (WIRE_PROFILE_VERSION, Capabilities,
+from repro_torch.pipeline.op import (SESSION_WIRE_VERSION,
+                                     WIRE_PROFILE_VERSION, Capabilities,
                                      NegotiationError, OperatingPoint,
-                                     negotiate)
+                                     negotiate, negotiate_session,
+                                     negotiate_tasks)
 from repro_torch.pipeline.plan import (CompressionPlan, DecodedBatch,
                                        ModelSpec, WireBlob, blob_from_tensor,
                                        compile)
 
 __all__ = [
-    "WIRE_PROFILE_VERSION", "Capabilities", "NegotiationError",
-    "OperatingPoint", "negotiate",
+    "SESSION_WIRE_VERSION", "WIRE_PROFILE_VERSION", "Capabilities",
+    "NegotiationError", "OperatingPoint", "negotiate", "negotiate_session",
+    "negotiate_tasks",
     "CompressionPlan", "DecodedBatch", "ModelSpec", "WireBlob",
     "blob_from_tensor", "compile",
 ]

@@ -1,8 +1,8 @@
 """Declarative operating points for the BaF compression pipeline.
 
 Copy of ``repro/pipeline/op.py`` for the port (operating points,
-capabilities and negotiation; session and task negotiation come with the
-serving slice).
+capabilities, and the negotiation of operating points, session profiles
+and task heads).
 
 An :class:`OperatingPoint` is the single value object that names *everything*
 about how one request's split activation is coded on the wire: how many
@@ -27,6 +27,13 @@ from dataclasses import dataclass
 # writes BaF2). A gateway advertises the profiles it can decode; encode and
 # decode sides must agree before any bytes move.
 WIRE_PROFILE_VERSION = 2
+
+# Streaming-session wire profile: the SessionFrame framing that wraps I/P
+# frames (repro_torch.session.codec writes SSF1). Negotiated separately from
+# the container profile — an endpoint may decode plain containers but not
+# speak the temporal-delta framing, in which case sessions fall back to
+# I-only.
+SESSION_WIRE_VERSION = 1
 
 _TILING_MODES = ("auto", "tiled", "direct")
 _CONTEXT_MODES = ("auto", "none", "static", "adaptive")
@@ -118,11 +125,23 @@ class Capabilities:
     max_bits  : deepest quantizer it will decode
     downgrade : whether :func:`negotiate` may substitute a supported backend
                 / shallower bit depth instead of refusing
+    session_profiles : SessionFrame framing generations the decode side
+                speaks (empty tuple = no temporal P-frames; sessions run
+                I-only when downgrade is allowed)
+    task_heads : downstream task heads this endpoint serves (None = every
+                registered head; see repro_torch.tasks.heads). A declared
+                task the endpoint does not serve is dropped when downgrade
+                is allowed, refused otherwise (:func:`negotiate_tasks`)
     """
     profiles: tuple = (WIRE_PROFILE_VERSION,)
     backends: tuple | None = None
     max_bits: int = 16
     downgrade: bool = True
+    session_profiles: tuple = (SESSION_WIRE_VERSION,)
+    task_heads: tuple | None = None
+
+    def serves_task(self, name: str) -> bool:
+        return self.task_heads is None or name in self.task_heads
 
     def speaks_backend(self, name: str) -> bool:
         return self.backends is None or name in self.backends
@@ -170,3 +189,56 @@ def negotiate(op: OperatingPoint, caps: Capabilities | None) -> OperatingPoint:
             f"no supported backend can serve this operating point: {e}"
         ) from None
     return out
+
+
+def negotiate_session(caps: Capabilities | None, *,
+                      profile: int = SESSION_WIRE_VERSION) -> bool:
+    """Can a session stream temporal P-frames at this endpoint?
+
+    True = the decode side speaks the SessionFrame profile, P-frames may
+    flow. False = it does not, but downgrade is allowed, so the session runs
+    I-frame-only (every frame a standalone container — correct, just more
+    bits). Refusal (profile unknown AND downgrade disabled) raises
+    :class:`NegotiationError` before any frame is encoded.
+    """
+    if caps is None or profile in caps.session_profiles:
+        return True
+    if caps.downgrade:
+        return False
+    raise NegotiationError(
+        f"endpoint speaks session profiles {caps.session_profiles}, stream "
+        f"requires profile {profile} and downgrade is disabled")
+
+
+def negotiate_tasks(tasks, caps: Capabilities | None) -> tuple:
+    """Fit a tenant's declared task set to the endpoint's served heads.
+
+    Returns the effective task tuple (declaration order kept, duplicates
+    dropped). A declared head the endpoint does not serve is dropped when
+    ``caps.downgrade`` allows it — the tenant is served the subset and,
+    through bit allocation, only pays for that subset; with downgrade
+    disabled, or when nothing declared survives, the whole declaration is
+    refused (:class:`NegotiationError`). Task negotiation never touches the
+    operating point — wire-profile and backend fitting stay in
+    :func:`negotiate`, so a foreign wire profile still refuses regardless
+    of how few heads a tenant declares.
+    """
+    declared = tuple(dict.fromkeys(tasks))
+    if not declared:
+        raise ValueError("empty task declaration (declare at least one "
+                         "task head)")
+    if caps is None or caps.task_heads is None:
+        return declared
+    served = tuple(t for t in declared if t in caps.task_heads)
+    if served == declared:
+        return declared
+    dropped = [t for t in declared if t not in caps.task_heads]
+    if not caps.downgrade:
+        raise NegotiationError(
+            f"endpoint serves task heads {sorted(caps.task_heads)}, tenant "
+            f"declared unsupported {dropped} and downgrade is disabled")
+    if not served:
+        raise NegotiationError(
+            f"endpoint serves task heads {sorted(caps.task_heads)}; none of "
+            f"the declared tasks {list(declared)} can be served")
+    return served

@@ -203,9 +203,18 @@ class CompressionPlan:
             return WireBlob(data=enc.to_bytes(), op=self.op,
                             shape=tuple(codes.shape), stats=stats)
 
-    def encode(self, z) -> WireBlob:
-        """Quantize/entropy-code the split activation ``z`` (B, H, W, P)."""
-        codes, mins, maxs = self._quantize(z)
+    def encode_device_codes(self, codes: torch.Tensor, mins: torch.Tensor,
+                            maxs: torch.Tensor, *,
+                            raw_bits: int | None = None) -> WireBlob:
+        """Entropy-code codes (B, H, W, C) that are still on the plan's
+        device, with their side info (B, C).
+
+        For the static ``rans`` backend the histogram kernel counts the
+        symbols while the codes are on the card; codes, side info and counts
+        then come to the host in one copy and the counts go to
+        :meth:`encode_codes`. The session codec sends its P-frames' temporal
+        delta through here too.
+        """
         if self.op.wire_backend == "rans" and 1 << self.op.bits <= MAX_NSYM:
             c = self.op.c
             with hooks.timed("pipeline.histogram"):
@@ -216,8 +225,12 @@ class CompressionPlan:
             counts = None
             mins, maxs, codes = _to_host(mins, maxs, codes)
         qp = QuantParams(mins=mins, maxs=maxs, bits=self.op.bits)
-        return self.encode_codes(codes, qp, counts=counts,
-                                 raw_bits=int(np.prod(np.shape(z))) * 32)
+        return self.encode_codes(codes, qp, counts=counts, raw_bits=raw_bits)
+
+    def encode(self, z) -> WireBlob:
+        """Quantize/entropy-code the split activation ``z`` (B, H, W, P)."""
+        return self.encode_device_codes(
+            *self._quantize(z), raw_bits=int(np.prod(np.shape(z))) * 32)
 
     # -- decode (cloud side, host) ------------------------------------------
     def _check_blob(self, blob: WireBlob, shape: tuple) -> None:

@@ -164,9 +164,8 @@ def session_bits_per_frame(point: RDPoint, *, keyframe_interval: int,
 
     RD tables price I-frames (``bits_per_example`` is a standalone
     container); a streaming session interleaves cheap P-frames
-    (repro.session, not ported yet), so pricing rungs off the I-only number
-    overestimates
-    their wire cost. With the point's measured ``p_over_i`` ratio:
+    (repro_torch.session), so pricing rungs off the I-only number
+    overestimates their wire cost. With the point's measured ``p_over_i`` ratio:
 
         keyframe_interval k >= 1 : (1 + (k-1)·ratio) / k   of I-frame bits
         keyframe_interval 0      : ratio (steady state all-P after frame 0)

@@ -777,3 +777,88 @@ def test_serving_gateway_on_the_card_matches_the_cpu(cuda):
     assert launches == {"quantize": 4, "histogram": 4, "consolidate": 2,
                         "cdf": 0, "flash_attention": 0, "linear_scan": 0}
     np.testing.assert_allclose(logits, clogits, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("bits", [4, 12])
+def test_session_clip_on_the_card_matches_the_cpu(cuda, bits):
+    """A 10-frame session clip (I then P, keyframe interval 4) on the card
+    and on the CPU from the same z: SSF1 frames byte-identical, decoded
+    codes identical; quantize and histogram once a frame on the card, and
+    the P-frames' delta formed on the card (12 bits: uint16 codes)."""
+    from repro_torch import pipeline
+    from repro_torch.session import (SessionConfig, SessionDecoder,
+                                     SessionEncoder)
+
+    rng = np.random.default_rng(bits)
+    z = rng.normal(size=(1, 16, 16, 32)).astype(np.float32)
+    zs = []
+    for _ in range(10):
+        z = z + 0.01 * rng.normal(size=z.shape).astype(np.float32)
+        zs.append(torch.from_numpy(z.copy()))
+    op = pipeline.OperatingPoint(c=8, bits=bits, backend="rans")
+    spec = pipeline.ModelSpec(sel_idx=rng.permutation(32)[:8])
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        def plan_for(o, dev=dev):
+            return pipeline.compile(o, spec, device=dev)
+        cfg = SessionConfig(session_id=2, levels=(op,), keyframe_interval=4)
+        enc, dec = SessionEncoder(cfg, plan_for), SessionDecoder(cfg,
+                                                                 plan_for)
+        before = [k.launches for k in _build.KERNELS]
+        out = [enc.encode(x.to(dev)) for x in zs]
+        launches = {k.name: k.launches - b
+                    for k, b in zip(_build.KERNELS, before)}
+        runs.append(([b for b, _ in out], [m.intra for _, m in out],
+                     [dec.decode(b)[0].codes for b, _ in out], launches))
+    (blobs, intra, codes, launches), (cblobs, cintra, ccodes, _) = runs
+    assert blobs == cblobs and intra == cintra
+    assert intra == [True, False, False, False] * 2 + [True, False]
+    assert all(np.array_equal(a, b) for a, b in zip(codes, ccodes))
+    assert launches == {"quantize": 10, "histogram": 10, "consolidate": 0,
+                        "cdf": 0, "flash_attention": 0, "linear_scan": 0}
+
+
+def test_detect_head_on_the_card_matches_the_cpu(cuda):
+    """The detect head (and the other two) on the card against the CPU from
+    the same weights and z, 1e-4 (cuDNN's TF32 off for the classify head's
+    convolutions); the detect head launches the flash kernel once a call,
+    float32, head dim 16, not causal."""
+    from repro_torch.models.cnn import CNN, CNNConfig
+    from repro_torch.tasks import HeadConfig, init_head_bank, run_heads
+
+    cfg = CNNConfig(width_mult=0.25, input_size=64, num_classes=8,
+                    tail_res_blocks=1)
+    hcfg = HeadConfig(split_p=cfg.split_p, num_classes=cfg.num_classes)
+    z = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(3, 32, 32, cfg.split_p)).astype(np.float32))
+    outs = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            model = CNN(cfg, seed=0, device=dev)
+            heads = init_head_bank(torch.Generator().manual_seed(9), hcfg,
+                                   device=dev)
+            before = _build.FLASH_ATTENTION.launches
+            outs.append(run_heads(model, heads, z.to(dev),
+                                  ("classify", "detect", "embed"), hcfg))
+            if dev == cuda:
+                assert _build.FLASH_ATTENTION.launches - before == 1
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for task in ("classify", "detect", "embed"):
+        np.testing.assert_allclose(outs[0][task], outs[1][task], rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_flash_f32_at_the_detect_heads_shape(cuda, b):
+    """float32, head dim 16, not causal, S = 4096 (a 64x64 grid of
+    tokens), two heads: the kernel against its plain version, 2e-5."""
+    g = torch.Generator(device=cuda).manual_seed(b)
+    q, k, v = (torch.randn((b, 4096, 2, 16), generator=g, device=cuda)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import pipeline, serve
+from repro_torch import pipeline, serve, tasks
 from repro_torch.configs.yolo_baf import smoke_config
 from repro_torch.core.baf import BaFConv, BaFConvConfig
 from repro_torch.core.split import SplitInferenceEngine, fidelity_metrics
@@ -116,6 +116,8 @@ def test_device_none_means_the_card():
     baf = BaFConv(BaFConvConfig(c=8, q=cfg.split_q, hidden=8), device="cpu")
     bank = {8: (baf, list(range(8)))}
     img = np.zeros((1, 32, 32, 3), np.float32)
+    hcfg = tasks.HeadConfig(split_p=cfg.split_p)
+    heads = tasks.init_head_bank(torch.Generator(), hcfg, device="cpu")
     for call in [
         lambda: SplitInferenceEngine(model, baf, list(range(8))),
         lambda: serve.ServingGateway(model, bank),
@@ -123,6 +125,13 @@ def test_device_none_means_the_card():
                                          tenants=[serve.TenantSpec("a")]),
         lambda: serve.build_rd_table(model, bank, img),
         lambda: fidelity_metrics(model, baf, list(range(8)), img, bits=8),
+        lambda: tasks.init_head_bank(torch.Generator(), hcfg),
+        lambda: tasks.build_task_rd_tables(
+            model, bank, img, head_bank=heads, head_cfg=hcfg,
+            ops=[pipeline.OperatingPoint(c=8, bits=8)]),
+        lambda: tasks.MultiTaskGateway(model, bank,
+                                       tenants=[serve.TenantSpec("a")],
+                                       head_bank=heads, head_cfg=hcfg),
     ]:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

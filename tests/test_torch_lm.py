@@ -1,6 +1,8 @@
 """The port's LM serving path against the JAX package, at smoke scale.
 
-qwen2-7b (dense GQA) and rwkv6-3b (RWKV-6) smoke configs, 2 layers. Weights
+The dense GQA smoke configs (qwen2-7b, starcoder2-15b with GELU and
+LayerNorm, nemotron-4-15b with squared ReLU, qwen2-72b) and rwkv6-3b
+(RWKV-6), 2 layers each. Weights
 come from the JAX ``init_lm``; its zero biases, zero token-shift mixes and
 unit norm scales would hide mistakes, so they are overwritten with numpy
 draws before ``bridge.lm_from_jax`` carries them across. The JAX side runs
@@ -39,7 +41,8 @@ from repro_torch.models.lm import LM, init_decode_cache, lm_forward
 from repro_torch.serve.engine import (make_decode_step, make_long_ingest,
                                       make_prefill_step)
 
-ARCHS = ["qwen2_7b", "rwkv6_3b"]
+ARCHS = ["qwen2_7b", "rwkv6_3b", "starcoder2_15b", "nemotron4_15b",
+         "qwen2_72b"]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 S = 128
@@ -111,7 +114,7 @@ def test_prefill_and_decode_match_jax(pallas_backends, arch, dtype):
                                  jnp.asarray(tok, jnp.int32))
         tl, tc = step(s["model"], tc, torch.from_numpy(tok))
         _close(tl, jl, s["tol"])
-    if arch == "qwen2_7b":
+    if s["tcfg"].family == "dense":
         for i, kv in enumerate(tc.kv):
             assert kv.length == 3
             _close(kv.k, jc.kv.k[i], s["tol"])
