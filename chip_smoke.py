@@ -26,10 +26,16 @@ package ``repro``. Phases, each printing lines before the last:
      attention (f32 and bf16, causal or not, window, Sq < Sk, GQA 7 and 1,
      hd 16, 64 and 128, ragged S, the qwen2-7b prefill's shape, the detect
      head's (8, 4096, 2, 16) float32 and the 15B prefills' GQA 48/4 and
-     48/8 bf16; bf16 q, k, v sliced from one fused qkv tensor); the linear scan (rwkv with
+     48/8 bf16, the zoo's prefills (olmoe 16/16, arctic 56/8, pixtral
+     32/8, zamba2's shared block 32/32 at hd 64) and whisper's encoder
+     (1500 frames, not causal), decoder (448, causal) and cross-attention
+     (448 against 1500); bf16 q, k, v sliced from one fused qkv tensor);
+     the linear scan (rwkv with
      bonus, ssm, per-channel and scalar decay, with and without an initial
-     state, the rwkv6-3b prefill's and ingest's shapes; chunk 32 at the
-     decay clamp, NaN where the plain version has NaN);
+     state, the rwkv6-3b prefill's and ingest's shapes, zamba2's prefill
+     and ingest block at chunk 128 with a (B, S, H, 1) decay; chunk 32 at
+     the decay clamp, NaN where the plain version has NaN; a per-channel
+     decay at chunk 128 refused before any launch);
   4. the BaF main path at the paper's full width (YOLO front at 512x512,
      split tensor 64x64x256, C=64, 8 bits, static rANS, fused restore):
      eight one-image requests through edge -> plan.encode ->
@@ -113,19 +119,40 @@ package ``repro``. Phases, each printing lines before the last:
      (128 launches) held against one 4096-token prefill, 16 decode steps
      from the ingest state; the top kernels of a prefill, of the ingest
      and of a decode step;
- 10. qwen2-7b and rwkv6-3b at smoke scale in float32 from the same seeded
-     weights: the kernels on the card against the plain versions on the
-     CPU;
+  9b. the rest of the LM zoo at full width, one arch after another:
+     olmoe-1b-7b (16 layers, 64 experts top-8) and arctic-480b (full width,
+     1 of its 35 layers): B=2, a 512-token prefill (flash once a layer),
+     the cache filled token by token, 16 greedy decode steps; the routings
+     that differ between flash and plain attention counted; in float32
+     (the weights upcast in place) flash against plain attention, and
+     prefill against cache fill at a 16-token prompt where no slot drops,
+     each at the positions before the first routing difference of its row;
+     pixtral-12b (40 layers) as the dense LMs, prefilled from 512 seeded
+     embeddings and its cache filled with them; zamba2-1.2b (38 Mamba-2
+     layers in 7 segments): a 512-token prefill (38 scan and 7 flash
+     launches), cache fill, 16 decode steps, an 8192-token ingest in
+     blocks of 4096 (76 scan launches, no flash) held against one
+     8192-token prefill with window 4096, 16 decode steps from the
+     ingest's state; whisper-tiny: 1500 seeded frame embeddings, a
+     448-token teacher-forced decoder pass (flash 4 + 4 + 4), the cache
+     filled over the 448 tokens against the teacher-forced logits at every
+     position, 16 decode steps; each with its times and peak memory;
+ 10. every arch at smoke scale in float32 from the same seeded weights
+     (whisper through its encoder, decoder pass and decode, pixtral from
+     embeddings, the ssm and hybrid ingests and their states): the kernels
+     on the card against the plain versions on the CPU;
  11. times: each kernel's device time and device operations per call at
      its path's shapes (torch.profiler) beside its bound, its plain version
      and, where one PyTorch call computes the same function, that call; the
      histogram also on the path's own codes; cdf through the cdf path's
      (C, S) views, row-major, and at S=4096; flash at the qwen2-7b prefill's
-     shape and at the detect head's and the two 15B prefills'
-     (``flash_attention/<path>``, each with its launches on its path); the
-     linear scan twice, at the prefill's shape (its launches in the
-     prefill) and at the ingest block's (``linear_scan/ingest_block``, its
-     launches in the ingest).
+     shape and at the detect head's, the two 15B prefills', the zoo's
+     prefills' and whisper's three attentions' (``flash_attention/<path>``,
+     each with its launches on its path); the linear scan at rwkv6-3b's
+     prefill (its launches in the prefill) and ingest block
+     (``linear_scan/ingest_block``, its launches in the ingest), and at
+     zamba2-1.2b's (``linear_scan/zamba2_prefill``,
+     ``linear_scan/zamba2_ingest_block``).
 
 Then one JSON line with every kernel's numbers, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any failed
@@ -201,14 +228,53 @@ TASK_N = 16
 # tighter bound (0.281 against 0.389).
 BIG_LMS = (("starcoder2_15b", 2, 12), ("nemotron4_15b", 3, 13))
 BIG_LM_BF16_SPREAD = 2.0
-# Flash at this slice's path shapes, (B, S, H, KH, hd, causal): the detect
-# head over a micro-batch of 8 restored 64x64 grids (4096 tokens), the two
-# 15B prefills.
-DETECT_FLASH = (8, 64 * 64, 2, 2, 16, False)
+# The rest of the zoo (phase 9b), one after another: the MoE LMs as (arch,
+# weight seed, token seed, layers kept: None for all; arctic-480b's 35
+# layers are ~954 GB in bf16, so one layer at full width), pixtral-12b
+# (dense, prompts of precomputed embeddings), zamba2-1.2b (a 512-token
+# prefill, and an ingest of ZAMBA_LONG tokens in blocks of ZAMBA_BLOCK, its
+# long-context window), whisper-tiny (Whisper's 30-s window of 1500 frames,
+# a 448-token decoder pass). MoE prefill and cache fill route differently
+# by design (a row of S tokens against the B tokens of a step), so they
+# are held against each other at MOE_FILL_PROMPT tokens, where no slot can
+# drop (capacity is at least 8, and a token takes an expert once). At 16
+# tokens olmoe-1b-7b's random weights dropped 1176 of 4096 slots (H100
+# 80GB HBM3, 700 W): they route most tokens of a row alike.
+ZOO_MOE = (("olmoe_1b_7b", 4, 14, None), ("arctic_480b", 5, 15, 1))
+MOE_FILL_PROMPT = 8
+PIXTRAL = ("pixtral_12b", 6, 16)
+ZAMBA_SEED, ZAMBA_LONG, ZAMBA_BLOCK = 7, 8192, 4096
+WHISPER_SEED, WHISPER_FRAMES, WHISPER_TOKENS = 8, 1500, 448
+# Flash at the paths' shapes, (B, Sq, Sk, H, KH, hd, causal): the detect
+# head over a micro-batch of 8 restored 64x64 grids (4096 tokens), the 15B
+# prefills, the zoo's prefills (zamba2's shared block), whisper's encoder,
+# decoder self-attention and cross-attention.
+DETECT_FLASH = (8, 64 * 64, 64 * 64, 2, 2, 16, False)
 FLASH_PATH_SHAPES = (
     ("detect_head", "float32", DETECT_FLASH),
-    ("starcoder2_15b", "bfloat16", (QWEN_B, QWEN_PROMPT, 48, 4, 128, True)),
-    ("nemotron4_15b", "bfloat16", (QWEN_B, QWEN_PROMPT, 48, 8, 128, True)))
+    ("starcoder2_15b", "bfloat16", (QWEN_B, QWEN_PROMPT, QWEN_PROMPT, 48, 4,
+                                    128, True)),
+    ("nemotron4_15b", "bfloat16", (QWEN_B, QWEN_PROMPT, QWEN_PROMPT, 48, 8,
+                                   128, True)),
+    ("olmoe_1b_7b", "bfloat16", (QWEN_B, QWEN_PROMPT, QWEN_PROMPT, 16, 16,
+                                 128, True)),
+    ("arctic_480b", "bfloat16", (QWEN_B, QWEN_PROMPT, QWEN_PROMPT, 56, 8,
+                                 128, True)),
+    ("pixtral_12b", "bfloat16", (QWEN_B, QWEN_PROMPT, QWEN_PROMPT, 32, 8,
+                                 128, True)),
+    ("zamba2_1p2b", "bfloat16", (QWEN_B, QWEN_PROMPT, QWEN_PROMPT, 32, 32,
+                                 64, True)),
+    ("whisper_encoder", "bfloat16", (QWEN_B, WHISPER_FRAMES, WHISPER_FRAMES,
+                                     6, 6, 64, False)),
+    ("whisper_decoder", "bfloat16", (QWEN_B, WHISPER_TOKENS, WHISPER_TOKENS,
+                                     6, 6, 64, True)),
+    ("whisper_cross", "bfloat16", (QWEN_B, WHISPER_TOKENS, WHISPER_FRAMES,
+                                   6, 6, 64, False)))
+# The scan at zamba2's shapes, (label, S, initial state): its 512-token
+# prefill and its ingest block; B = 2, 64 heads, dk = dv = 64, chunk 128,
+# ssm mode, a (B, S, H, 1) decay.
+ZAMBA_SCAN = (("zamba2_prefill", QWEN_PROMPT, False),
+              ("zamba2_ingest_block", ZAMBA_BLOCK, True))
 
 
 def nvidia_smi_line() -> str:
@@ -566,6 +632,7 @@ def check_lm_kernels(dev) -> dict:
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels import _build
     from repro_torch.kernels.histogram import cdf, cdf_plain
     from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
 
@@ -620,19 +687,19 @@ def check_lm_kernels(dev) -> dict:
             errs["flash_attention"] = max(errs["flash_attention"], err)
     # the shapes of this slice's paths, each its own row of the JSON line:
     # the detect head (float32, not causal), the two 15B prefills (bf16)
-    for label, name, (b, s_, h, kh, hd, causal) in FLASH_PATH_SHAPES:
+    for label, name, (b, sq, sk, h, kh, hd, causal) in FLASH_PATH_SHAPES:
         dtype = getattr(torch, name)
-        q = torch.randn((b, s_, h, hd), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b, s_, kh, hd), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, s_, kh, hd), generator=gen, device=dev).to(dtype)
+        q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, sk, kh, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, sk, kh, hd), generator=gen, device=dev).to(dtype)
         got = flash_attention(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         sync(dev)
         err = max_abs_diff([(got, want)])
         tol = FLASH_TOL[name]
-        print(f"flash {name} at the {label} shape B={b} S={s_} H={h} KH={kh} "
-              f"hd={hd} causal={causal}: max abs diff {err!r} (tolerance "
-              f"{tol})")
+        print(f"flash {name} at the {label} shape B={b} Sq={sq} Sk={sk} "
+              f"H={h} KH={kh} hd={hd} causal={causal}: max abs diff {err!r} "
+              f"(tolerance {tol})")
         if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
             raise AssertionError(f"flash kernel differs at the {label} shape")
         errs[f"flash_attention/{label}"] = err
@@ -654,15 +721,21 @@ def check_lm_kernels(dev) -> dict:
     errs["flash_attention"] = max(errs["flash_attention"], err)
 
     scan_cases = [
-        # B, S, H, dk, dv, chunk, mode, per-channel, bonus, initial state
-        (RWKV_B, RWKV_PROMPT, 40, 64, 64, 16, "rwkv", True, True, False),
-        (RWKV_B, RWKV_BLOCK, 40, 64, 64, 16, "rwkv", True, True, True),
-        (2, 128, 4, 64, 64, 16, "ssm", False, False, True),
-        (2, 128, 4, 64, 64, 16, "ssm", True, False, False),
-        (1, 96, 3, 32, 48, 16, "rwkv", False, True, False),
-    ]
+        # label, B, S, H, dk, dv, chunk, mode, per-channel, bonus, initial
+        ("", RWKV_B, RWKV_PROMPT, 40, 64, 64, 16, "rwkv", True, True, False),
+        ("", RWKV_B, RWKV_BLOCK, 40, 64, 64, 16, "rwkv", True, True, True),
+        ("", 2, 128, 4, 64, 64, 16, "ssm", False, False, True),
+        ("", 2, 128, 4, 64, 64, 16, "ssm", True, False, False),
+        ("", 1, 96, 3, 32, 48, 16, "rwkv", False, True, False),
+        ("", 1, 256, 2, 32, 32, 128, "ssm", False, False, True),
+    ] + [(label, QWEN_B, s_, 64, 64, 64, 128, "ssm", False, False, init)
+         for label, s_, init in ZAMBA_SCAN]
+    for label, *_ in scan_cases:
+        if label:
+            errs[f"linear_scan/{label}"] = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for b, s_, h, dk, dv, chunk, mode, per_ch, bonus, init in scan_cases:
+        for (label, b, s_, h, dk, dv, chunk, mode, per_ch, bonus,
+             init) in scan_cases:
             def rnd(*shape, scale=0.5):
                 return torch.randn(shape, generator=gen, device=dev) * scale
             q, k = rnd(b, s_, h, dk).to(dtype), rnd(b, s_, h, dk).to(dtype)
@@ -684,8 +757,22 @@ def check_lm_kernels(dev) -> dict:
                   f"abs diff {err!r} (tolerance {SCAN_TOL})")
             if not ok:
                 raise AssertionError("linear-scan kernel differs from plain")
-            errs["linear_scan"] = max(errs["linear_scan"], err)
+            key = f"linear_scan/{label}" if label else "linear_scan"
+            errs[key] = max(errs[key], err)
     errs["linear_scan"] = max(errs["linear_scan"], scan_overflow_case(dev))
+    # a per-channel decay at chunk 128 does not fit a block's shared memory:
+    # refused before any launch
+    q = torch.ones((1, 128, 1, 64), device=dev)
+    before = _build.LINEAR_SCAN.launches
+    try:
+        linear_scan(q, q, q, -q, chunk=128, mode="ssm")
+    except ValueError as e:
+        print(f"linear scan per-channel decay at chunk 128, dk = dv = 64: "
+              f"refused before any launch ({e})")
+    else:
+        raise AssertionError("per-channel decay at chunk 128 was launched")
+    if _build.LINEAR_SCAN.launches != before:
+        raise AssertionError("the refused scan call counted a launch")
     return errs
 
 
@@ -2074,41 +2161,39 @@ def _timed(dev, fn):
     return out, time.perf_counter() - t0
 
 
-def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
-                  bf16_spread: float = 1.0) -> dict:
-    """A dense LM at its full published config: prefill (flash kernel, one
-    launch a layer), token-by-token cache fill, greedy decode, checks. The
-    float32 checks run on the same weights upcast in place once the bf16
-    work is done, so a 15B model's float32 copy (~62 GB) never sits beside
-    its bf16 weights. The bf16 pairs are held to ``bf16_spread`` times the
-    plain bf16 path's distance from float32."""
+def _prompt(dev, cfg, gen):
+    """(tokens (B, S), prefill batch, feed(model, cache, t) -> (logits,
+    cache)): token prompts, or for a vlm seeded embeddings at the embedding
+    table's scale (std 0.02), fed to the cache through
+    ``lm_decode_step(..., embeds=)``."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import param_count_dense
-    from repro_torch.kernels import _build
-    from repro_torch.models.lm import init_decode_cache, init_lm, lm_forward
-    from repro_torch.serve.engine import make_decode_step, make_prefill_step
-
-    cfg = get_config(arch)
-    name = cfg.name
-    torch.cuda.reset_peak_memory_stats(dev)
-    (model, t_init) = _timed(dev, lambda: init_lm(cfg, seed=seed,
-                                                  device=dev))
-    nparams = sum(p.numel() for p in model.parameters())
-    print(f"{name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.hd}, "
-          f"{cfg.act}, {cfg.norm}, vocab {cfg.vocab}, {nparams} parameters "
-          f"held ({param_count_dense(cfg)} by the config's count, which "
-          f"leaves out norms and biases), weights in {cfg.dtype}; "
-          f"initialised on the card in {t_init!r} s")
-    gen = torch.Generator(device=dev).manual_seed(token_seed)
+    from repro_torch.models.lm import lm_decode_step
     tokens = torch.randint(0, cfg.vocab, (QWEN_B, QWEN_PROMPT), generator=gen,
                            device=dev)
-    prefill = make_prefill_step(cfg)
-    step = make_decode_step(cfg)
-    batch = {"tokens": tokens}
+    if cfg.embed_inputs:
+        return tokens, {"tokens": tokens}, \
+            lambda m, c, t: lm_decode_step(m, c, tokens[:, t])
+    embeds = (torch.randn((QWEN_B, QWEN_PROMPT, cfg.d_model), generator=gen,
+                          device=dev) * 0.02).to(cfg.dtype)
+    return tokens, {"embeds": embeds}, \
+        lambda m, c, t: lm_decode_step(m, c, None, embeds=embeds[:, t])
+
+
+def _serve_prompt(dev, cfg, model, batch, feed) -> dict:
+    """The counted run of a dense, vlm or MoE LM: a warm-up prefill, then
+    with the launch counts from 0 the prefill (flash once a layer), the
+    cache filled by ``feed`` token by token and GEN greedy decode steps;
+    launches, shapes and finiteness checked, greedy tokens, times and the
+    top kernels printed -> dict(logits, last (the cache fill's last
+    logits), launches, times)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models.lm import init_decode_cache
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    name = cfg.name
+    prefill, step = make_prefill_step(cfg), make_decode_step(cfg)
     prefill(model, batch)                                   # warm-up
-    # the counted run: prefill, cache fill, decode
     _build.reset_launches()
     logits, t_prefill = _timed(dev, lambda: prefill(model, batch))
     after_prefill = launch_counts()
@@ -2119,7 +2204,7 @@ def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
         nonlocal cache
         out = None
         for t in range(QWEN_PROMPT):
-            out, cache = step(model, cache, tokens[:, t])
+            out, cache = feed(model, cache, t)
         return out
     last, t_fill = _timed(dev, fill)
     tok = _argmax_tokens(logits[:, -1])
@@ -2142,21 +2227,20 @@ def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
                              f"{launches['flash_attention']} times, expected "
                              f"{cfg.n_layers}")
     peak = torch.cuda.max_memory_allocated(dev)
-
     if tuple(logits.shape) != (QWEN_B, QWEN_PROMPT, cfg.vocab) or \
-            not torch_isfinite(logits) or not torch_isfinite(last_decode):
+            not all(torch_isfinite(t) for t in (logits, last, last_decode)):
         raise AssertionError(f"{name} logits have the wrong shape or are "
                              f"not finite")
-    # the same model with the plain attention in place of the kernel
-    plain = lm_forward(model, tokens=tokens, attention="blocked")[0]
     rows = [[int(t[i]) for t in generated] for i in range(QWEN_B)]
     print(f"{name} greedy tokens: {rows}")
     times = dict(prefill_ms=t_prefill * 1e3,
                  cache_fill_ms_per_token=t_fill * 1e3 / QWEN_PROMPT,
                  decode_ms_per_token=t_decode * 1e3 / GEN,
                  peak_gb=peak / 1e9)
-    print(f"{name} times (host clock, synchronised): prefill of "
-          f"{QWEN_B}x{QWEN_PROMPT} tokens {times['prefill_ms']!r} ms; cache "
+    print(f"{name} times (host clock, synchronised; {nvidia_smi_line()}): "
+          f"prefill of {QWEN_B}x{QWEN_PROMPT} "
+          f"{'tokens' if cfg.embed_inputs else 'embeddings'} "
+          f"{times['prefill_ms']!r} ms; cache "
           f"fill {times['cache_fill_ms_per_token']!r} ms per step; decode "
           f"{times['decode_ms_per_token']!r} ms per step of {QWEN_B} tokens; "
           f"peak memory {times['peak_gb']!r} GB")
@@ -2164,15 +2248,51 @@ def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
     profile_top(dev, f"{name} decode step", lambda: step(model, cache, tok))
     del cache
     torch.cuda.empty_cache()
+    return dict(logits=logits, last=last, launches=launches, times=times)
+
+
+def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
+                  bf16_spread: float = 1.0) -> dict:
+    """A dense LM at its full published config: prefill (flash kernel, one
+    launch a layer), token-by-token cache fill, greedy decode, checks. The
+    float32 checks run on the same weights upcast in place once the bf16
+    work is done, so a 15B model's float32 copy (~62 GB) never sits beside
+    its bf16 weights. The bf16 pairs are held to ``bf16_spread`` times the
+    plain bf16 path's distance from float32. A vlm (pixtral-12b) prefills
+    from seeded embeddings, fills its cache with them and decodes text
+    tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import param_count_dense
+    from repro_torch.models.lm import init_decode_cache, init_lm, lm_forward
+
+    cfg = get_config(arch)
+    name = cfg.name
+    torch.cuda.reset_peak_memory_stats(dev)
+    (model, t_init) = _timed(dev, lambda: init_lm(cfg, seed=seed,
+                                                  device=dev))
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"{name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.hd}, "
+          f"{cfg.act}, {cfg.norm}, vocab {cfg.vocab}, {nparams} parameters "
+          f"held ({param_count_dense(cfg)} by the config's count, which "
+          f"leaves out norms and biases), weights in {cfg.dtype}; "
+          f"initialised on the card in {t_init!r} s")
+    gen = torch.Generator(device=dev).manual_seed(token_seed)
+    _, batch, feed = _prompt(dev, cfg, gen)
+    run = _serve_prompt(dev, cfg, model, batch, feed)
+    logits, last = run["logits"], run["last"]
+    # the same model with the plain attention in place of the kernel
+    plain = lm_forward(model, attention="blocked", **batch)[0]
     # the same weights in float32: prefill with the kernel and with plain
     # attention, and the cache fill
     model.float()
     model.cfg = cfg.with_(dtype=torch.float32)
-    logits32 = prefill(model, batch)
-    plain32 = lm_forward(model, tokens=tokens, attention="blocked")[0]
+    logits32 = lm_forward(model, **batch)[0]
+    plain32 = lm_forward(model, attention="blocked", **batch)[0]
     cache32 = init_decode_cache(model.cfg, QWEN_B, QWEN_PROMPT, device=dev)
     for t in range(QWEN_PROMPT):
-        last32, cache32 = step(model, cache32, tokens[:, t])
+        last32, cache32 = feed(model, cache32, t)
     del model, cache32
     noise = _dist(plain, plain32)
     print(f"{name} bf16 against float32 of the same weights: prefill with "
@@ -2187,7 +2307,7 @@ def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
          last, logits[:, -1])], spread=bf16_spread)
     del logits32, plain32, logits, plain
     torch.cuda.empty_cache()
-    return dict(launches=launches, times=times, checks=checks)
+    return dict(launches=run["launches"], times=run["times"], checks=checks)
 
 
 def rwkv_path(dev) -> dict:
@@ -2287,6 +2407,475 @@ def rwkv_path(dev) -> dict:
                 n_prefill=n_prefill, n_ingest=n_ingest)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9b: the rest of the LM zoo at full width
+# ---------------------------------------------------------------------------
+
+def _routed(r):
+    """A ``moe.Routing``'s experts with the slots its capacity dropped set
+    to -1: (G, T, k). Two runs whose tables agree here up to a position
+    compute the same function there (a dropped slot depends on the other
+    tokens of the group)."""
+    import torch
+    c = r.token_for.shape[-1] - 1
+    return torch.where(r.slot_pos < c, r.top_e, -1)
+
+
+def _route_diffs(top_a, top_b):
+    """Per-layer routed experts (``_routed``) of two runs over the same
+    (B, S) tokens, each (B, S, k) -> (the (token, layer, slot) routings
+    that differ, [the first position of each row routed differently in
+    some layer, S if none])."""
+    import torch
+    b, s = top_a[0].shape[:2]
+    first = torch.full((b,), s, dtype=torch.long, device=top_a[0].device)
+    pos = torch.arange(s, device=first.device)
+    n = 0
+    for a, c in zip(top_a, top_b):
+        d = a != c
+        n += int(d.sum())
+        first = torch.minimum(first, torch.where(d.any(-1), pos, s)
+                              .min(dim=1).values)
+    return n, first.tolist()
+
+
+def _prefix(first, *ts):
+    """Each (B, S, ...) tensor's positions of row i before ``first[i]``,
+    rows concatenated: where two routings agree, every layer's input."""
+    import torch
+    return [torch.cat([t[i, :f] for i, f in enumerate(first)]) for t in ts]
+
+
+def moe_lm_path(dev, arch: str, seed: int, token_seed: int,
+                n_layers) -> dict:
+    """An MoE LM at full width (``n_layers`` of its layers, or all): B=2, a
+    512-token prefill (flash once a layer), the cache filled token by
+    token, 16 greedy decode steps. Routing is discontinuous, so: the
+    routings of the kernel's prefill and of plain attention's are counted
+    apart; float32 (the weights upcast in place) holds flash against plain
+    at the positions before the first routing difference of their row, and
+    prefill against cache fill at a MOE_FILL_PROMPT-token prompt, where no
+    slot can drop, likewise; bf16 holds flash against plain at every position
+    within twice the plain path's distance from float32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import total_param_count
+    from repro_torch.models.lm import (init_decode_cache, init_lm,
+                                       lm_decode_step, lm_forward)
+    from repro_torch.models.moe import capacity
+
+    full = get_config(arch)
+    cfg = full if n_layers is None else full.with_(n_layers=n_layers)
+    name, m = cfg.name, cfg.moe
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, t_init = _timed(dev, lambda: init_lm(cfg, seed=seed, device=dev))
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"{name}: {cfg.n_layers} of its {full.n_layers} layers at full "
+          f"width, d_model {cfg.d_model}, {cfg.n_heads} q / "
+          f"{cfg.n_kv_heads} kv heads of {cfg.hd}, {m.num_experts} experts "
+          f"of d_ff {m.d_ff_expert}, top {m.top_k}"
+          f"{f', a dense residual FFN of {cfg.d_ff}' if m.dense_residual else ''}"
+          f"; capacity {capacity(QWEN_PROMPT, m)} slots an expert for a row "
+          f"of {QWEN_PROMPT} tokens, {capacity(QWEN_B, m)} for a decode "
+          f"step; {nparams} parameters held ({total_param_count(cfg)} by "
+          f"the config's count), weights in {cfg.dtype}; initialised on the "
+          f"card in {t_init!r} s")
+    gen = torch.Generator(device=dev).manual_seed(token_seed)
+    tokens, batch, feed = _prompt(dev, cfg, gen)
+    run = _serve_prompt(dev, cfg, model, batch, feed)
+    logits = run["logits"]
+
+    def routed(model):
+        """(flash logits, plain logits, routings that differ, first
+        differing position per row, slots dropped in the flash prefill)"""
+        rf, rp = [], []
+        lf = lm_forward(model, tokens=tokens, routes=rf)[0]
+        lp = lm_forward(model, tokens=tokens, attention="blocked",
+                        routes=rp)[0]
+        n, first = _route_diffs([_routed(r) for r in rf],
+                                [_routed(r) for r in rp])
+        c = capacity(QWEN_PROMPT, m)
+        return lf, lp, n, first, sum(int((r.slot_pos == c).sum())
+                                     for r in rf)
+
+    def short_pair(model):
+        """Prefill and cache fill of the short prompt: (prefill logits,
+        cache-fill logits, routings that differ, first differing position
+        per row); raises where the prefill drops a slot."""
+        short = tokens[:, :MOE_FILL_PROMPT]
+        rp, rf, steps = [], [], []
+        lp = lm_forward(model, tokens=short, routes=rp)[0]
+        c = capacity(MOE_FILL_PROMPT, m)
+        dropped = sum(int((r.slot_pos == c).sum()) for r in rp)
+        if dropped:
+            raise AssertionError(f"{name}: {dropped} slots dropped at a "
+                                 f"{MOE_FILL_PROMPT}-token prompt")
+        cs = init_decode_cache(model.cfg, QWEN_B, MOE_FILL_PROMPT,
+                               device=dev)
+        for t in range(MOE_FILL_PROMPT):
+            lt, cs = lm_decode_step(model, cs, short[:, t], routes=rf)
+            steps.append(lt)
+        nl = model.cfg.n_layers
+        fill_e = [torch.stack([_routed(rf[t * nl + j])[0]
+                               for t in range(MOE_FILL_PROMPT)], dim=1)
+                  for j in range(nl)]
+        n, first = _route_diffs([_routed(r) for r in rp], fill_e)
+        return lp, torch.stack(steps, dim=1), n, first
+
+    lf, plain, n16, first16, drop16 = routed(model)
+    ps16, fs16, nf16, ff16 = short_pair(model)
+    slots = QWEN_B * QWEN_PROMPT * m.top_k * cfg.n_layers
+    print(f"{name} bf16 routing: the prefill dropped {drop16} of {slots} "
+          f"(token, layer, slot) routings at capacity; flash vs plain "
+          f"attention: {n16} routings differ (expert or drop), first "
+          f"differing position per "
+          f"row {first16}; the {MOE_FILL_PROMPT}-token prompt (no slot "
+          f"dropped), prefill vs cache fill: {nf16} differ, first "
+          f"{ff16}; the rerun prefill is bit-identical to the counted one: "
+          f"{bits_equal(lf, logits)}")
+    del lf
+    model.float()
+    model.cfg = cfg.with_(dtype=torch.float32)
+    l32, plain32, n32, first32, drop32 = routed(model)
+    ps32, fs32, nf32, ff32 = short_pair(model)
+    del model
+    print(f"{name} float32 routing: the prefill dropped {drop32} of {slots} "
+          f"routings; flash vs plain attention: {n32} differ, first "
+          f"differing position per row {first32}; the short prompt's "
+          f"prefill vs cache fill: {nf32} differ, first {ff32}")
+    if min(first32) == 0 or min(ff32) == 0:
+        raise AssertionError(f"{name}: a float32 row is routed differently "
+                             f"from its first position on")
+    noise = _dist(plain, plain32)
+    print(f"{name} bf16 against float32 of the same weights: prefill with "
+          f"the kernel {_dist(logits, l32)!r}, with plain attention "
+          f"{noise!r} (max abs, routing differences included)")
+    short = f"{MOE_FILL_PROMPT}-token prompt, prefill vs cache fill"
+    before = "positions before the first routing difference"
+    pairs16 = [("prefill: flash kernel vs plain attention", logits, plain)]
+    if sum(ff16) > 0:
+        pairs16.append((f"{short}, {before}", *_prefix(ff16, ps16, fs16)))
+    else:
+        print(f"{name} bf16 {short}: routed differently from the first "
+              f"position of each row; held in float32 only")
+    checks = _f32_checks(name, [
+        (f"prefill: flash kernel vs plain attention, {before}",
+         *_prefix(first32, l32, plain32)),
+        (f"{short}, {before}", *_prefix(ff32, ps32, fs32))], noise, pairs16,
+        spread=BIG_LM_BF16_SPREAD)
+    del l32, plain32, logits, plain
+    torch.cuda.empty_cache()
+    return dict(launches=run["launches"], times=run["times"], checks=checks)
+
+
+def hybrid_lm_path(dev) -> dict:
+    """zamba2-1.2b, full config: B=2, a 512-token prefill (the scan once a
+    Mamba-2 layer, flash once a shared-block call), the cache filled token
+    by token, 16 decode steps; an ingest of ZAMBA_LONG tokens in blocks of
+    ZAMBA_BLOCK (the scan only: the shared block's windowed attention is
+    plain torch, as in the reference), held against one ZAMBA_LONG-token
+    prefill with window=ZAMBA_BLOCK, then 16 decode steps from the ingest's
+    state; the float32 checks on a float32 copy."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import param_count_dense
+    from repro_torch.kernels import _build
+    from repro_torch.models.lm import (init_decode_cache, init_lm, lm_forward,
+                                       segment_bounds)
+    from repro_torch.serve.engine import (decode_cache_from_ingest,
+                                          make_decode_step, make_long_ingest,
+                                          make_prefill_step)
+
+    cfg = get_config("zamba2_1p2b")
+    if cfg.hybrid.attn_window_long != ZAMBA_BLOCK:
+        raise AssertionError("the ingest's block must be the long window")
+    nseg, sc = len(segment_bounds(cfg)), cfg.ssm
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, t_init = _timed(dev, lambda: init_lm(cfg, seed=ZAMBA_SEED,
+                                                device=dev))
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"zamba2-1.2b: {cfg.n_layers} Mamba-2 layers (d_inner "
+          f"{sc.expand * cfg.d_model}, {sc.expand * cfg.d_model // sc.head_dim}"
+          f" heads of {sc.head_dim}, state {sc.state_dim}, chunk {sc.chunk}) "
+          f"in {nseg} segments, the shared block ({cfg.n_heads} heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}) after each; {nparams} parameters held "
+          f"({param_count_dense(cfg)} by the config's count); initialised on "
+          f"the card in {t_init!r} s")
+    gen = torch.Generator(device=dev).manual_seed(ZAMBA_SEED + 10)
+    prompt = torch.randint(0, cfg.vocab, (QWEN_B, QWEN_PROMPT), generator=gen,
+                           device=dev)
+    long_toks = torch.randint(0, cfg.vocab, (QWEN_B, ZAMBA_LONG),
+                              generator=gen, device=dev)
+    batch = {"tokens": prompt}
+    prefill, step = make_prefill_step(cfg), make_decode_step(cfg)
+    ingest = make_long_ingest(cfg, block=ZAMBA_BLOCK)
+    prefill(model, batch)                                   # warm-up
+    _build.reset_launches()
+    logits, t_prefill = _timed(dev, lambda: prefill(model, batch))
+    n_scan, n_flash = _build.LINEAR_SCAN.launches, \
+        _build.FLASH_ATTENTION.launches
+    cache = init_decode_cache(cfg, QWEN_B, QWEN_PROMPT + GEN + 1, device=dev)
+
+    def fill(model, cache):
+        out = None
+        for t in range(QWEN_PROMPT):
+            out, cache = step(model, cache, prompt[:, t])
+        return out, cache
+    (last, cache), t_fill = _timed(dev, lambda: fill(model, cache))
+    tok = _argmax_tokens(logits[:, -1])
+
+    def decode(cache, tok, out):
+        for _ in range(GEN):
+            lt, cache = step(model, cache, tok)
+            tok = _argmax_tokens(lt)
+            out.append(tok)
+        return lt, cache
+    generated = [tok]
+    (last_decode, cache), t_decode = _timed(
+        dev, lambda: decode(cache, tok, generated))
+    before_ingest = launch_counts()
+    (last_ing, state), t_ingest = _timed(dev, lambda: ingest(model,
+                                                             long_toks))
+    n_scan_ingest = _build.LINEAR_SCAN.launches \
+        - before_ingest["linear_scan"]
+    n_flash_ingest = _build.FLASH_ATTENTION.launches \
+        - before_ingest["flash_attention"]
+    dcache = decode_cache_from_ingest(cfg, state, GEN + 1)
+    after = [_argmax_tokens(last_ing)]
+    (ldec, dcache), t_dec_ing = _timed(
+        dev, lambda: decode(dcache, after[0], after))
+    launches = launch_counts()
+    print(f"zamba2-1.2b launches: prefill scan {n_scan} (expected "
+          f"{cfg.n_layers}) and flash {n_flash} (expected {nseg}); cache "
+          f"fill and decode none of either ({before_ingest}); ingest of "
+          f"{ZAMBA_LONG} tokens: scan {n_scan_ingest} (expected "
+          f"{cfg.n_layers} x {ZAMBA_LONG // ZAMBA_BLOCK}), flash "
+          f"{n_flash_ingest}; all launches over the path {launches}")
+    if (n_scan, n_flash) != (cfg.n_layers, nseg) or \
+            n_scan_ingest != cfg.n_layers * (ZAMBA_LONG // ZAMBA_BLOCK) or \
+            n_flash_ingest != 0 or before_ingest["linear_scan"] != n_scan or \
+            before_ingest["flash_attention"] != n_flash:
+        raise AssertionError("zamba2-1.2b did not launch the kernels as its "
+                             "layers call them")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(logits.shape) != (QWEN_B, QWEN_PROMPT, cfg.vocab) or not all(
+            torch_isfinite(t) for t in (logits, last, last_decode, last_ing,
+                                        ldec)):
+        raise AssertionError("zamba2-1.2b logits have the wrong shape or are "
+                             "not finite")
+    plain = lm_forward(model, tokens=prompt, attention="blocked")[0]
+    full, t_full = _timed(dev, lambda: lm_forward(
+        model, tokens=long_toks, window=ZAMBA_BLOCK)[0][:, -1])
+    rows = [[int(t[i]) for t in generated] for i in range(QWEN_B)]
+    rows_ing = [[int(t[i]) for t in after] for i in range(QWEN_B)]
+    print(f"zamba2-1.2b greedy tokens after the prompt: {rows}; after the "
+          f"ingest: {rows_ing}")
+    times = dict(prefill_ms=t_prefill * 1e3,
+                 cache_fill_ms_per_token=t_fill * 1e3 / QWEN_PROMPT,
+                 decode_ms_per_token=t_decode * 1e3 / GEN,
+                 ingest_ms=t_ingest * 1e3, long_prefill_ms=t_full * 1e3,
+                 decode_after_ingest_ms_per_token=t_dec_ing * 1e3 / GEN,
+                 peak_gb=peak / 1e9)
+    print(f"zamba2-1.2b times (host clock, synchronised; "
+          f"{nvidia_smi_line()}): prefill of {QWEN_B}x{QWEN_PROMPT} tokens "
+          f"{times['prefill_ms']!r} ms; cache fill "
+          f"{times['cache_fill_ms_per_token']!r} ms per step; decode "
+          f"{times['decode_ms_per_token']!r} ms per step of {QWEN_B} tokens; "
+          f"ingest of {QWEN_B}x{ZAMBA_LONG} in blocks of {ZAMBA_BLOCK} "
+          f"{times['ingest_ms']!r} ms; one windowed {ZAMBA_LONG}-token "
+          f"prefill {times['long_prefill_ms']!r} ms; decode after the ingest "
+          f"{times['decode_after_ingest_ms_per_token']!r} ms per step; peak "
+          f"memory {times['peak_gb']!r} GB (before the long prefill)")
+    profile_top(dev, "zamba2-1.2b prefill", lambda: prefill(model, batch))
+    profile_top(dev, f"zamba2-1.2b ingest of {ZAMBA_LONG} tokens",
+                lambda: ingest(model, long_toks))
+    profile_top(dev, "zamba2-1.2b decode step",
+                lambda: step(model, cache, tok))
+    del cache, dcache, state
+    torch.cuda.empty_cache()
+    m32 = _f32_copy(model)
+    logits32 = prefill(m32, batch)
+    plain32 = lm_forward(m32, tokens=prompt, attention="blocked")[0]
+    last32, _ = fill(m32, init_decode_cache(m32.cfg, QWEN_B, QWEN_PROMPT,
+                                            device=dev))
+    ing32, _ = make_long_ingest(m32.cfg, block=ZAMBA_BLOCK)(m32, long_toks)
+    full32 = lm_forward(m32, tokens=long_toks, window=ZAMBA_BLOCK)[0][:, -1]
+    del m32, model
+    noise, noise_long = _dist(plain, plain32), _dist(full, full32)
+    print(f"zamba2-1.2b bf16 against float32 of the same weights: prefill "
+          f"with the kernels {_dist(logits, logits32)!r}, with plain "
+          f"attention {noise!r}, cache fill {_dist(last, last32)!r}; the "
+          f"windowed {ZAMBA_LONG}-token prefill {noise_long!r}, the ingest "
+          f"{_dist(last_ing, ing32)!r} (max abs)")
+    checks = _f32_checks("zamba2-1.2b", [
+        ("prefill: flash kernel vs plain attention", logits32, plain32),
+        ("last prompt position: prefill vs cache fill", last32,
+         logits32[:, -1])], noise, [
+        ("prefill: flash kernel vs plain attention", logits, plain),
+        ("last prompt position: prefill vs cache fill", last,
+         logits[:, -1])], spread=BIG_LM_BF16_SPREAD)
+    label = (f"last position: ingest of {ZAMBA_LONG} tokens in blocks of "
+             f"{ZAMBA_BLOCK} vs one {ZAMBA_LONG}-token prefill with window "
+             f"{ZAMBA_BLOCK}")
+    checks.update(_f32_checks("zamba2-1.2b", [(label, ing32, full32)],
+                              noise_long, [(label, last_ing, full)],
+                              spread=BIG_LM_BF16_SPREAD))
+    del logits, plain, logits32, plain32
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, checks=checks,
+                n_scan=n_scan, n_flash=n_flash, n_scan_ingest=n_scan_ingest)
+
+
+def whisper_path(dev) -> dict:
+    """whisper-tiny, full config: B=2, WHISPER_FRAMES seeded frame
+    embeddings through the encoder (flash once a layer) and a
+    WHISPER_TOKENS-token teacher-forced decoder pass (flash twice a layer:
+    self- and cross-attention); the cache built from the encoder's output
+    and filled token by token, held against the teacher-forced logits at
+    every position; 16 greedy decode steps; the float32 checks on a
+    float32 copy."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.encdec import (decode_train, encode,
+                                           init_encdec, init_encdec_cache)
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    cfg = get_config("whisper_tiny")
+    ed = cfg.encdec
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, t_init = _timed(dev, lambda: init_encdec(cfg, seed=WHISPER_SEED,
+                                                    device=dev))
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"whisper-tiny: {ed.enc_layers} encoder and {ed.dec_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.hd}, vocab {cfg.vocab}, {nparams} parameters held; "
+          f"initialised on the card in {t_init!r} s")
+    gen = torch.Generator(device=dev).manual_seed(WHISPER_SEED + 10)
+    audio = torch.randn((QWEN_B, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                        device=dev).to(cfg.dtype)
+    tokens = torch.randint(0, cfg.vocab, (QWEN_B, WHISPER_TOKENS),
+                           generator=gen, device=dev)
+    batch = {"audio_embeds": audio, "tokens": tokens}
+    prefill, step = make_prefill_step(cfg), make_decode_step(cfg)
+    prefill(model, batch)                                   # warm-up
+    _build.reset_launches()
+    enc, t_enc = _timed(dev, lambda: encode(model, audio))
+    n_enc = _build.FLASH_ATTENTION.launches
+    logits, t_dec = _timed(dev, lambda: decode_train(model, tokens, enc))
+    n_dec = _build.FLASH_ATTENTION.launches - n_enc
+    cache = init_encdec_cache(model, enc, WHISPER_TOKENS + GEN + 1)
+
+    def fill(model, cache):
+        outs = []
+        for t in range(WHISPER_TOKENS):
+            lt, cache = step(model, cache, tokens[:, t])
+            outs.append(lt)
+        return torch.stack(outs, dim=1), cache
+    (filled, cache), t_fill = _timed(dev, lambda: fill(model, cache))
+    tok = _argmax_tokens(logits[:, -1])
+    generated = [tok]
+
+    def decode():
+        nonlocal cache, tok
+        for _ in range(GEN):
+            lt, cache = step(model, cache, tok)
+            tok = _argmax_tokens(lt)
+            generated.append(tok)
+        return lt
+    last_decode, t_decode = _timed(dev, decode)
+    launches = launch_counts()
+    print(f"whisper-tiny flash launches: encoder {n_enc} (expected "
+          f"{ed.enc_layers}), decoder pass {n_dec} (expected "
+          f"{2 * ed.dec_layers}: self- and cross-attention); all launches "
+          f"over the path {launches}")
+    if n_enc != ed.enc_layers or n_dec != 2 * ed.dec_layers or \
+            launches["flash_attention"] != n_enc + n_dec:
+        raise AssertionError("whisper-tiny did not launch flash once an "
+                             "attention")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(logits.shape) != (QWEN_B, WHISPER_TOKENS, cfg.vocab) or \
+            not torch_isfinite(logits) or not torch_isfinite(last_decode):
+        raise AssertionError("whisper-tiny logits have the wrong shape or "
+                             "are not finite")
+    plain = decode_train(model, tokens, encode(model, audio,
+                                               attention="blocked"),
+                         attention="blocked")
+    rows = [[int(t[i]) for t in generated] for i in range(QWEN_B)]
+    print(f"whisper-tiny greedy tokens: {rows}")
+    times = dict(prefill_ms=(t_enc + t_dec) * 1e3, encode_ms=t_enc * 1e3,
+                 cache_fill_ms_per_token=t_fill * 1e3 / WHISPER_TOKENS,
+                 decode_ms_per_token=t_decode * 1e3 / GEN,
+                 peak_gb=peak / 1e9)
+    print(f"whisper-tiny times (host clock, synchronised; "
+          f"{nvidia_smi_line()}): encoder over {QWEN_B}x{WHISPER_FRAMES} "
+          f"frames {times['encode_ms']!r} ms, with the {WHISPER_TOKENS}-token "
+          f"decoder pass {times['prefill_ms']!r} ms; cache fill "
+          f"{times['cache_fill_ms_per_token']!r} ms per step; decode "
+          f"{times['decode_ms_per_token']!r} ms per step of {QWEN_B} tokens; "
+          f"peak memory {times['peak_gb']!r} GB")
+    profile_top(dev, "whisper-tiny encoder and decoder pass",
+                lambda: prefill(model, batch))
+    profile_top(dev, "whisper-tiny decode step",
+                lambda: step(model, cache, tok))
+    del cache
+    m32 = _f32_copy(model)
+    enc32 = encode(m32, audio)
+    logits32 = decode_train(m32, tokens, enc32)
+    plain32 = decode_train(m32, tokens, encode(m32, audio,
+                                               attention="blocked"),
+                           attention="blocked")
+    filled32, _ = fill(m32, init_encdec_cache(m32, enc32, WHISPER_TOKENS))
+    del m32, model
+    noise = _dist(plain, plain32)
+    print(f"whisper-tiny bf16 against float32 of the same weights: with the "
+          f"kernel {_dist(logits, logits32)!r}, with plain attention "
+          f"{noise!r}, cache fill {_dist(filled, filled32)!r} (max abs)")
+    every = f"every one of the {WHISPER_TOKENS} positions"
+    checks = _f32_checks("whisper-tiny", [
+        ("encoder and decoder pass: flash kernel vs plain attention",
+         logits32, plain32),
+        (f"teacher-forced pass vs cache fill, {every}", filled32,
+         logits32)], noise, [
+        ("encoder and decoder pass: flash kernel vs plain attention",
+         logits, plain),
+        (f"teacher-forced pass vs cache fill, {every}", filled, logits)],
+        spread=BIG_LM_BF16_SPREAD)
+    del logits, plain, filled, logits32, plain32, filled32
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, checks=checks, n_enc=n_enc,
+                n_dec=n_dec)
+
+
+def zoo_paths(dev) -> dict:
+    """Phase 9b, one arch after another, memory freed between them ->
+    the launches of each new flash and scan row on its path."""
+    import torch
+    launches = {}
+    for arch, seed, token_seed, n_layers in ZOO_MOE:
+        res = moe_lm_path(dev, arch, seed, token_seed, n_layers)
+        launches[f"flash_attention/{arch}"] = \
+            res["launches"]["flash_attention"]
+        torch.cuda.empty_cache()
+    pix = dense_lm_path(dev, *PIXTRAL, bf16_spread=BIG_LM_BF16_SPREAD)
+    launches[f"flash_attention/{PIXTRAL[0]}"] = \
+        pix["launches"]["flash_attention"]
+    torch.cuda.empty_cache()
+    zamba = hybrid_lm_path(dev)
+    launches["flash_attention/zamba2_1p2b"] = zamba["n_flash"]
+    launches["linear_scan/zamba2_prefill"] = zamba["n_scan"]
+    launches["linear_scan/zamba2_ingest_block"] = zamba["n_scan_ingest"]
+    torch.cuda.empty_cache()
+    whisper = whisper_path(dev)
+    # the decoder pass's launches are its self- and cross-attention, one
+    # each a layer
+    launches["flash_attention/whisper_encoder"] = whisper["n_enc"]
+    launches["flash_attention/whisper_decoder"] = whisper["n_dec"] // 2
+    launches["flash_attention/whisper_cross"] = whisper["n_dec"] // 2
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_top(dev, label: str, fn, top: int = 8) -> None:
     """Device time of one call by kernel name, and the device's busy share
     of the call's wall time."""
@@ -2310,45 +2899,69 @@ def profile_top(dev, label: str, fn, top: int = 8) -> None:
 
 def lms_card_vs_cpu(dev) -> float:
     """Smoke-scale LMs in float32 from one seed: kernels on the card against
-    the plain versions on the CPU (prefill, 3 decode steps, rwkv ingest)."""
+    the plain versions on the CPU (prefill, 3 decode steps, the ingests
+    and their states; a vlm from embeddings; whisper's encoder, decoder
+    pass and 3 decode steps)."""
     import torch
     from repro_torch.configs import get_smoke_config
+    from repro_torch.models.encdec import (decode_train, encode, init_encdec,
+                                           init_encdec_cache)
     from repro_torch.models.lm import init_decode_cache, init_lm
     from repro_torch.serve.engine import (make_decode_step, make_long_ingest,
                                           make_prefill_step)
 
     cpu = torch.device("cpu")
     worst = 0.0
-    for arch in ("qwen2_7b", "rwkv6_3b"):
+    for arch in ("qwen2_7b", "rwkv6_3b", "olmoe_1b_7b", "arctic_480b",
+                 "pixtral_12b", "zamba2_1p2b", "whisper_tiny"):
         cfg = get_smoke_config(arch).with_(dtype=torch.float32)
-        ref = init_lm(cfg, seed=5, device=cpu)
-        card = init_lm(cfg, seed=5, device=cpu).to(dev)
-        toks = torch.randint(0, cfg.vocab, (2, 128),
-                             generator=torch.Generator().manual_seed(6))
-        pairs = [(make_prefill_step(cfg)(card, {"tokens": toks.to(dev)}),
-                  make_prefill_step(cfg)(ref, {"tokens": toks}))]
+        g = torch.Generator().manual_seed(6)
+        toks = torch.randint(0, cfg.vocab, (2, 128), generator=g)
         step = make_decode_step(cfg)
-        cc = init_decode_cache(cfg, 2, 8, device=dev)
-        rc = init_decode_cache(cfg, 2, 8, device=cpu)
+        if cfg.family == "audio":
+            ref = init_encdec(cfg, seed=5, device=cpu)
+            card = init_encdec(cfg, seed=5, device=cpu).to(dev)
+            audio = torch.randn((2, 150, cfg.d_model), generator=g)
+            er, ec = encode(ref, audio), encode(card, audio.to(dev))
+            pairs = [(ec, er), (decode_train(card, toks.to(dev), ec),
+                                decode_train(ref, toks, er))]
+            cc = init_encdec_cache(card, ec, 8)
+            rc = init_encdec_cache(ref, er, 8)
+        else:
+            ref = init_lm(cfg, seed=5, device=cpu)
+            card = init_lm(cfg, seed=5, device=cpu).to(dev)
+            kw = ({"tokens": toks} if cfg.embed_inputs else
+                  {"embeds": torch.randn((2, 128, cfg.d_model), generator=g)})
+            prefill = make_prefill_step(cfg)
+            pairs = [(prefill(card, {k: v.to(dev) for k, v in kw.items()}),
+                      prefill(ref, kw))]
+            cc = init_decode_cache(cfg, 2, 8, device=dev)
+            rc = init_decode_cache(cfg, 2, 8, device=cpu)
         for t in range(3):
             lc, cc = step(card, cc, toks[:, t].to(dev))
             lr, rc = step(ref, rc, toks[:, t])
             pairs.append((lc, lr))
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             ingest = make_long_ingest(cfg, block=32)
             (lc, sc), (lr, sr) = ingest(card, toks.to(dev)), ingest(ref, toks)
             pairs.append((lc, lr))
-            pairs += [(a.wkv, b.wkv) for a, b in zip(sc.layer_states,
-                                                     sr.layer_states)]
+            key = "wkv" if cfg.family == "ssm" else "ssm"
+            pairs += [(getattr(a, key), getattr(b, key))
+                      for a, b in zip(sc.layer_states, sr.layer_states)]
+            if cfg.family == "hybrid":
+                pairs += list(zip(sc.shared_k, sr.shared_k))
         pairs = [(a.cpu(), b) for a, b in pairs]
         err = max_abs_diff(pairs)
         ok = all(torch.allclose(a, b, atol=LM_CPU_TOL, rtol=LM_CPU_TOL)
                  for a, b in pairs)
+        what = ("encoder, decoder pass, 3 decode steps"
+                if cfg.family == "audio" else
+                f"prefill{' from embeddings' if not cfg.embed_inputs else ''}"
+                f", 3 decode steps"
+                f"{', ingest and its states' if cfg.family in ('ssm', 'hybrid') else ''}")
         print(f"{arch} smoke config in float32, card (kernels) vs CPU (plain "
-              f"versions): prefill, 3 decode steps"
-              f"{', ingest and its states' if cfg.family == 'ssm' else ''}: "
-              f"max abs diff {err!r} (tolerance {LM_CPU_TOL} relative and "
-              f"absolute)")
+              f"versions): {what}: max abs diff {err!r} (tolerance "
+              f"{LM_CPU_TOL} relative and absolute)")
         if not ok:
             raise AssertionError(f"{arch}: card and CPU disagree")
         worst = max(worst, err)
@@ -2508,10 +3121,12 @@ def time_cdf(dev, row, gen) -> list:
     return out
 
 
-def time_lm_kernels(dev, row, gen) -> list:
-    """flash at the qwen2-7b prefill's shape and at this slice's (the
-    detect head, the two 15B prefills), the linear scan at the rwkv6-3b
-    prefill's and ingest block's."""
+def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
+    """flash at the qwen2-7b prefill's shape and at the other paths' (the
+    detect head, the 15B prefills, the zoo's prefills and whisper's three
+    attentions), the linear scan at the rwkv6-3b and zamba2-1.2b prefills'
+    and ingest blocks' (the latter without ``zamba_scan``, for a checkout
+    whose scan kernel does not take zamba2's chunk of 128)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -2524,13 +3139,14 @@ def time_lm_kernels(dev, row, gen) -> list:
     g = torch.Generator(device=dev).manual_seed(3)
 
     def flash_row(name, dtype, shape, note):
-        b, s, h, kh, hd, causal = shape
-        q = torch.randn((b, s, h, hd), generator=g, device=dev).to(dtype)
-        k = torch.randn((b, s, kh, hd), generator=g, device=dev).to(dtype)
-        v = torch.randn((b, s, kh, hd), generator=g, device=dev).to(dtype)
+        b, sq, sk, h, kh, hd, causal = shape
+        q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((b, sk, kh, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((b, sk, kh, hd), generator=g, device=dev).to(dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        # (q, k) pairs the mask keeps: causal, or every pair
-        pairs = s * (s + 1) // 2 if causal else s * s
+        # (q, k) pairs the mask keeps: causal aligned by Sk - Sq (Sq <= Sk
+        # here), or every pair
+        pairs = (sq * (sq + 1) // 2 + sq * (sk - sq)) if causal else sq * sk
         flops = 4.0 * b * h * hd * pairs
         # q, k, v read once and o written once, in their dtype
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -2542,20 +3158,23 @@ def time_lm_kernels(dev, row, gen) -> list:
             nbytes,
             timed(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=kh != h)),
-            f"{note} B={b} S={s} H={h} KH={kh} hd={hd} "
+            f"{note} B={b} Sq={sq} Sk={sk} H={h} KH={kh} hd={hd} "
             f"{str(dtype).split('.')[1]} {'causal' if causal else 'not causal'}"
             f"; library F.scaled_dot_product_attention on (B, H, S, hd) "
             f"copies", flops=flops,
             peak=BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
 
     out.append(flash_row("flash_attention", torch.bfloat16,
-                         (QWEN_B, QWEN_PROMPT, 28, 4, 128, True),
+                         (QWEN_B, QWEN_PROMPT, QWEN_PROMPT, 28, 4, 128, True),
                          "qwen2-7b prefill"))
+    notes = {"detect_head": "detect head (a micro-batch of 8)",
+             "zamba2_1p2b": "zamba2-1.2b shared block, prefill",
+             "whisper_encoder": "whisper-tiny encoder self-attention",
+             "whisper_decoder": "whisper-tiny decoder self-attention",
+             "whisper_cross": "whisper-tiny cross-attention"}
     for label, name, shape in FLASH_PATH_SHAPES:
-        out.append(flash_row(
-            f"flash_attention/{label}", getattr(torch, name), shape,
-            "detect head (a micro-batch of 8)" if label == "detect_head"
-            else f"{label} prefill"))
+        out.append(flash_row(f"flash_attention/{label}", getattr(torch, name),
+                             shape, notes.get(label, f"{label} prefill")))
 
     for name, s_, init in (("linear_scan", RWKV_PROMPT, False),
                            ("linear_scan/ingest_block", RWKV_BLOCK, True)):
@@ -2589,6 +3208,41 @@ def time_lm_kernels(dev, row, gen) -> list:
             nbytes, None,
             f"rwkv6-3b {'ingest block' if init else 'prefill'} B={b} "
             f"S={s_} H={h} dk=dv={dk} chunk {L}, rwkv with bonus"
+            f"{', initial state' if init else ''}; scratch "
+            f"{_scratch_floats(b, h, nc, L, dk, dv) * 4} bytes",
+            flops=flops))
+
+    for label, s_, init in ZAMBA_SCAN if zamba_scan else ():
+        b, h, dk, dv, L = QWEN_B, 64, 64, 64, 128
+        # C and B of the Mamba-2 layer broadcast over the heads, as the
+        # block hands them to the scan
+        qs, ks = ((torch.randn((b, s_, 1, dk), generator=g, device=dev)
+                   * 0.5).expand(b, s_, h, dk).to(torch.bfloat16).contiguous()
+                  for _ in range(2))
+        vs = torch.randn((b, s_, h, dv), generator=g, device=dev) \
+            .to(torch.bfloat16)
+        ld = -F.softplus(torch.randn((b, s_, h, 1), generator=g, device=dev)
+                         - 2.0) * 0.6931
+        s0 = torch.randn((b, h, dk, dv), generator=g, device=dev) \
+            if init else None
+        kw = dict(initial_state=s0, chunk=L, mode="ssm")
+        # bf16 q, k, v and the f32 (B, S, H, 1) decay read once; f32 y and
+        # state written once (and the initial state read)
+        nbytes = b * s_ * h * (2 * dk * 2 + dv * 2 + 4 + dv * 4) \
+            + (2 if init else 1) * b * h * dk * dv * 4
+        nc = s_ // L
+        pairs = L * (L + 1) // 2
+        per_chunk = (2 * pairs * dk + 2 * pairs * dv + 2 * L * dk * dv
+                     + 2 * L * dk * dv + 3 * L * dk + 5 * L * dk)
+        flops = float(b * h * nc * per_chunk)
+        out.append(row(
+            f"linear_scan/{label}", "src/repro_torch/csrc/linear_scan.cu",
+            "src/repro/kernels/linear_scan.py:80",
+            timed(lambda: linear_scan(qs, ks, vs, ld, **kw)),
+            timed(lambda: linear_scan_plain(qs, ks, vs, ld, **kw)),
+            nbytes, None,
+            f"zamba2-1.2b {'ingest block' if init else 'prefill'} B={b} "
+            f"S={s_} H={h} dk=dv={dk} chunk {L}, ssm, (B, S, H, 1) decay"
             f"{', initial state' if init else ''}; scratch "
             f"{_scratch_floats(b, h, nc, L, dk, dv) * 4} bytes",
             flops=flops))
@@ -2650,6 +3304,7 @@ def main() -> int:
     # the scan's two rows: its launches in the prefill and in the ingest
     launches["linear_scan"] = rwkv["n_prefill"]
     launches["linear_scan/ingest_block"] = rwkv["n_ingest"]
+    launches.update(zoo_paths(dev))
     lms_card_vs_cpu(dev)
     errs["linear_scan/ingest_block"] = errs["linear_scan"]
     rows = time_kernels(dev, errs, launches, res["path_codes"])

@@ -5,9 +5,10 @@ reproduce, so parity checks move the same weights across. The caller hands
 in the param pytrees as numpy (for example ``jax.tree.map(np.asarray,
 params)``); this module never imports JAX. Conv kernels go from HWIO to
 OIHW; BN statistics, PReLU slopes and dense weights are copied as they are.
-LM params keep the JAX (in, out) weight layout; their layers, stacked on a
-leading axis by the JAX package, go one slice to each layer module, and
-each leaf is cast to the dtype its module stores it in. Task heads keep
+LM and encoder-decoder params keep the JAX (in, out) weight layout; their
+layers, stacked on a leading axis by the JAX package, go one slice to each
+layer module (MoE experts stay stacked within a layer), and each leaf is
+cast to the dtype its module stores it in. Task heads keep
 the JAX param tree's names; their dense layers' ``w``/``b`` go to
 ``weight``/``bias``.
 """
@@ -20,6 +21,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.baf import BaFConv, BaFConvConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import CNN, CNNConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 from repro_torch.nn import Dense
 from repro_torch.tasks.heads import HeadConfig, get_head
@@ -93,14 +95,29 @@ def _load_tree(module: torch.nn.Module, tree: dict, index=None) -> int:
     return n
 
 
+def _load_stacked(model: torch.nn.Module, params, stacks) -> None:
+    """Each stack of layers one slice a layer module, then the rest."""
+    for name in stacks:
+        for i, layer in enumerate(getattr(model, name)):
+            _load_tree(layer, params[name], i)
+    _load_tree(model, {k: v for k, v in params.items() if k not in stacks})
+
+
 def lm_from_jax(params, cfg: ArchConfig, *, device=None) -> LM:
     """JAX ``init_lm`` params (numpy leaves, layers stacked on axis 0) ->
-    :class:`LM` for the dense and ssm families."""
+    :class:`LM`: the dense, vlm, moe (experts stacked (E, ...) in each
+    layer), ssm and hybrid (Mamba-2 layers and the ``shared`` block)
+    families."""
     model = LM(cfg, device=device)
-    layers = params["layers"]
-    for i, layer in enumerate(model.layers):
-        _load_tree(layer, layers, i)
-    _load_tree(model, {k: v for k, v in params.items() if k != "layers"})
+    _load_stacked(model, params, ("layers",))
+    return model
+
+
+def encdec_from_jax(params, cfg: ArchConfig, *, device=None) -> EncDec:
+    """JAX ``init_encdec`` params (numpy leaves, encoder and decoder layers
+    stacked on axis 0) -> :class:`EncDec`."""
+    model = EncDec(cfg, device=device)
+    _load_stacked(model, params, ("enc_layers", "dec_layers"))
     return model
 
 

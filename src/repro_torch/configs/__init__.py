@@ -2,9 +2,9 @@
 
 ``get_config(arch_id)`` returns the full published config and
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests,
-as ``repro.configs`` does. The port has the dense and ssm archs so far
-(``PORTED``); the others raise and name the ROADMAP step that brings
-them.
+as ``repro.configs`` does. Every arch of the zoo is ported (``PORTED``:
+the dense, moe, ssm, hybrid, vlm and audio families); an unknown id
+raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -14,8 +14,7 @@ ARCH_IDS = [
     "rwkv6_3b", "qwen2_72b", "starcoder2_15b", "nemotron4_15b", "qwen2_7b",
     "whisper_tiny", "pixtral_12b", "olmoe_1b_7b", "arctic_480b", "zamba2_1p2b",
 ]
-PORTED = ("qwen2_7b", "rwkv6_3b", "starcoder2_15b", "nemotron4_15b",
-          "qwen2_72b")
+PORTED = tuple(ARCH_IDS)
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIASES.update({
@@ -33,12 +32,7 @@ def canonical(arch: str) -> str:
 
 def _module(arch: str):
     name = canonical(arch)
-    if name in ARCH_IDS and name not in PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet: the rest of the LM zoo (moe, hybrid, "
-            f"vlm, audio) comes with ROADMAP Queue 1 step 9; ported: "
-            f"{', '.join(PORTED)}")
-    if name not in ARCH_IDS:
+    if name not in PORTED:
         raise KeyError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

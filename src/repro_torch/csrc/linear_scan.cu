@@ -26,7 +26,11 @@
 //
 // Two passes on the caller's stream, one C entry:
 //   A. one block per (b, h, c), all chunks at once: decays, qd, kd, k_rem,
-//      the masked scores and y_c's intra-chunk part (with the bonus). It
+//      the masked scores and y_c's intra-chunk part (with the bonus). A
+//      scalar decay (Mamba-2) and its cumsum are held as [L] vectors, not
+//      as [L][dk] rows, so zamba2's chunk of 128 at dk = dv = 64 fits a
+//      block's shared memory (51,136 floats; per-channel decay at that
+//      chunk does not, and the wrapper refuses it). It
 //      writes k_rem, qd, v (as float32) and y_intra of the chunk, and
 //      exp(la_end_c), to a scratch the wrapper allocates. A thread computes
 //      a small tile of outputs (2x2 scores, 1x4 of y_intra) from float4
@@ -38,9 +42,9 @@
 //      S_c = exp(la_end_c) * S_{c-1} + k_rem_c^T . v_c, while the next
 //      chunk's scratch is copied into shared memory (cp.async, two
 //      stages). Only this recurrence runs in chunk order.
-// Both passes are also compiled with rwkv6-3b's chunk and head dims (16,
-// 64, 64) fixed, which the launcher picks for those shapes: the index
-// arithmetic folds and the loops unroll.
+// Both passes are also compiled with rwkv6-3b's and zamba2-1.2b's chunk
+// and head dims ((16, 64, 64) and (128, 64, 64)) fixed, which the launcher
+// picks for those shapes: the index arithmetic folds and the loops unroll.
 //
 // Bound on the H100: at the rwkv6-3b prefill (B = 2, S = 512, 40 heads,
 // dk = dv = 64, chunk 16) inputs and outputs are 38 MB (11.4 us) and the
@@ -87,10 +91,15 @@ __host__ __device__ inline int dk_stride(int DK) { return dk4(DK) + 4; }
 __host__ __device__ inline int dv64(int DV) { return (DV + 63) / 64 * 64; }
 
 // shared floats of pass A and of pass B
-__host__ __device__ inline int smem_floats_a(int L, int DK, int DV) {
-  // q/qd, k/kd, la/k_rem, ld: [L][dkp]; v [L][dv64]; scores [L][L];
-  // bonus [L]; la_end [DK]
-  return 4 * L * dk_stride(DK) + L * dv64(DV) + r4(L * L + L + DK);
+__host__ __device__ inline int smem_floats_a(int L, int DK, int DV,
+                                             int ld_per_channel) {
+  // q/qd, k/kd, la/k_rem: [L][dkp]; v [L][dv64]; scores [L][L]; bonus
+  // [L]; la_end [DK]; the clamped log-decay as [L][dkp] when it is per
+  // channel, else it and its cumsum as two [L] vectors (la then lives
+  // there, and the third [L][dkp] array holds k_rem alone)
+  const int ld_floats = ld_per_channel ? L * dk_stride(DK) : 2 * r4(L);
+  return 3 * L * dk_stride(DK) + L * dv64(DV) + r4(L * L + L + DK) +
+         ld_floats;
 }
 __host__ __device__ inline int stage_floats_b(int L, int DK) {
   // k_rem [L][dk4]; qd [L][dk4 + 4] (rows shifted by 4 banks); v, y_intra
@@ -157,8 +166,10 @@ __device__ __forceinline__ float clamp_ld(float w) {
 }
 
 // Pass A: the state-free terms of one chunk, for all chunks at once.
+// (a chunk of 128 takes a block's whole shared memory: one block an SM,
+// so its registers are not held to 8 blocks' share)
 template <typename T, int CL, int CDK, int CDV>
-__global__ void __launch_bounds__(NT, 8)
+__global__ void __launch_bounds__(NT, CL > 64 ? 1 : 8)
 chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const float* __restrict__ ld,
              const float* __restrict__ u, float* __restrict__ scratch,
@@ -169,14 +180,18 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int L = CL ? CL : dm.L, DK = CDK ? CDK : dm.DK;
   const int DV = CDV ? CDV : dm.DV, DVP = dv64(DV);
   const int dkp = dk_stride(DK), d4 = dk4(DK);
+  const bool pc = dm.ld_per_channel;
   float* qs = smem;                 // q, then qd
   float* ks = qs + L * dkp;         // k, then kd
-  float* kr = ks + L * dkp;         // la, then k_rem
-  float* ls = kr + L * dkp;         // clamped log-decay
-  float* vs = ls + L * dkp;         // [L][DVP]
+  float* kr = ks + L * dkp;         // la (per channel), then k_rem
+  float* vs = kr + L * dkp;         // [L][DVP]
   float* sc = vs + L * DVP;         // [L][L]
   float* bq = sc + L * L;           // [L]
   float* le = bq + L;               // [DK] la_end
+  // the clamped log-decay: [L][dkp] per channel; else ls[t] and la[t]
+  float* ls = sc + r4(L * L + L + DK);
+  float* lv = ls + r4(L);           // la as [L] (scalar decay only)
+  const int lstep = pc ? dkp : 1, lcol = pc ? 1 : 0;
 
   const int tid = threadIdx.x;
   const int c = blockIdx.x;
@@ -190,7 +205,7 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* decay = sp.decay;
   for (int d = DK + tid; d < d4; d += NT) decay[d] = 0.0f;
 
-  const int ldw = dm.ld_per_channel ? DK : 1;
+  const int ldw = pc ? DK : 1;
   // q, k (zeros in the pad) and the clamped log-decay; then v
   staged<3, 4>(
       L * d4,
@@ -200,15 +215,15 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool in = d < DK;
         r[0] = in ? to_f(q[o]) : 0.0f;
         r[1] = in ? to_f(k[o]) : 0.0f;
-        r[2] = in ? ld[(t0 + t) * dm.H * ldw + (long long)h * ldw +
-                       (dm.ld_per_channel ? d : 0)]
-                  : 0.0f;
+        r[2] = in && (pc || d == 0)
+                   ? ld[(t0 + t) * dm.H * ldw + (long long)h * ldw + d * lcol]
+                   : 0.0f;
       },
       [&](int i, const float* r) {
         const int t = i / d4, d = i % d4;
         qs[t * dkp + d] = r[0];
         ks[t * dkp + d] = r[1];
-        ls[t * dkp + d] = clamp_ld(r[2]);
+        if (pc || d == 0) ls[t * lstep + d * lcol] = clamp_ld(r[2]);
       });
   staged<1, 4>(
       L * DVP,
@@ -228,11 +243,14 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bq[t] = acc;
     }
   }
-  for (int d = tid; d < DK; d += NT) {  // cumsum, one dk column a thread
+  // cumsum, one dk column a thread (with a scalar decay every column
+  // sums the same vector, and column 0 keeps la)
+  float* la_out = pc ? kr : lv;
+  for (int d = tid; d < DK; d += NT) {
     float la = 0.0f;
     for (int t = 0; t < L; ++t) {
-      la = la + ls[t * dkp + d];
-      kr[t * dkp + d] = la;
+      la = la + ls[t * lstep + d * lcol];
+      if (pc || d == 0) la_out[t * lstep + d * lcol] = la;
     }
     le[d] = la;
     decay[d] = expf(la);
@@ -240,8 +258,8 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();                  // raw q and k are read; scale in place
   for (int i = tid; i < L * DK; i += NT) {
     const int t = i / DK, d = i % DK;
-    const float a = kr[t * dkp + d];
-    const float a_prev = a - ls[t * dkp + d];
+    const float a = la_out[t * lstep + d * lcol];
+    const float a_prev = a - ls[t * lstep + d * lcol];
     const float kk = ks[t * dkp + d];
     qs[t * dkp + d] *= expf(dm.rwkv ? a_prev : a);
     ks[t * dkp + d] = kk * expf(-a);
@@ -464,7 +482,8 @@ int launch_passes(const void* q, const void* k, const void* v, const void* ld,
                   const void* u, const void* s0, void* y, void* sf,
                   void* scratch, const Dims& dm, cudaStream_t st) {
   const int L = dm.L, DK = dm.DK, DV = dm.DV;
-  const size_t smem_a = (size_t)smem_floats_a(L, DK, DV) * sizeof(float);
+  const size_t smem_a =
+      (size_t)smem_floats_a(L, DK, DV, dm.ld_per_channel) * sizeof(float);
   const size_t smem_b = (size_t)smem_floats_b(L, DK) * sizeof(float);
   auto* pass_a = chunk_kernel<T, CL, CDK, CDV>;
   auto* pass_b = carry_kernel<CL, CDK>;
@@ -506,6 +525,9 @@ int launch(const void* q, const void* k, const void* v, const void* ld,
   if (L == 16 && DK == 64 && DV == 64)     // rwkv6-3b's heads and chunk
     return launch_passes<T, 16, 64, 64>(q, k, v, ld, u, s0, y, sf, scratch,
                                         dm, st);
+  if (L == 128 && DK == 64 && DV == 64)    // zamba2-1.2b's
+    return launch_passes<T, 128, 64, 64>(q, k, v, ld, u, s0, y, sf, scratch,
+                                         dm, st);
   return launch_passes<T, 0, 0, 0>(q, k, v, ld, u, s0, y, sf, scratch, dm,
                                    st);
 }

@@ -33,13 +33,17 @@ def _r4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def _smem_floats(chunk: int, dk: int, dv: int) -> int:
+def _smem_floats(chunk: int, dk: int, dv: int, per_channel: bool) -> int:
     """Shared memory of the larger of the kernel's two passes, as
     ``smem_floats_a`` and ``smem_floats_b`` in the CUDA source (rows over
     dk padded to a multiple of 4, plus 4 in pass A; rows over dv to a
-    multiple of 64)."""
+    multiple of 64). Pass A holds a per-channel log-decay as (chunk, dk)
+    rows and a scalar one (Mamba-2's (B, S, H, 1)) and its cumsum as two
+    chunk-long vectors."""
     dk4, dv64 = _r4(dk), (dv + 63) // 64 * 64
-    a = 4 * chunk * (dk4 + 4) + chunk * dv64 + _r4(chunk * chunk + chunk + dk)
+    ld = chunk * (dk4 + 4) if per_channel else 2 * _r4(chunk)
+    a = 3 * chunk * (dk4 + 4) + chunk * dv64 \
+        + _r4(chunk * chunk + chunk + dk) + ld
     stage = chunk * dk4 + chunk * (dk4 + 4) + 2 * chunk * _JS + dk4
     return max(a, 2 * stage + dk4 * _JS)
 
@@ -128,10 +132,13 @@ def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
         raise ValueError(f"linear-scan kernel takes float32 or bfloat16 q, "
                          f"k, v of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if _smem_floats(chunk, dk, dv) * 4 > _SMEM_BYTES or dk > _MAX_DK:
-        raise ValueError(f"chunk {chunk}, dk {dk}, dv {dv} do not fit the "
-                         f"kernel: a block's shared memory and dk <= "
-                         f"{_MAX_DK}")
+    per_channel = log_decay.shape[3] == dk
+    if _smem_floats(chunk, dk, dv, per_channel) * 4 > _SMEM_BYTES \
+            or dk > _MAX_DK:
+        raise ValueError(f"chunk {chunk}, dk {dk}, dv {dv} with "
+                         f"{'a per-channel' if per_channel else 'a scalar'} "
+                         f"decay do not fit the kernel: a block's shared "
+                         f"memory and dk <= {_MAX_DK}")
     dev_t = q.device
     for t in (k, v, log_decay, bonus, initial_state):
         if t is not None and t.device != dev_t:
@@ -153,5 +160,5 @@ def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
         None if u is None else u.data_ptr(),
         None if s0 is None else s0.data_ptr(), y.data_ptr(), state.data_ptr(),
         scratch.data_ptr(), b, s, h, dk, dv, chunk,
-        int(mode == "rwkv"), int(ld.shape[3] == dk), dev, stream)
+        int(mode == "rwkv"), int(per_channel), dev, stream)
     return y, state

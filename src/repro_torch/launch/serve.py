@@ -8,10 +8,19 @@ Counterpart of ``repro/launch/serve.py``, with the same arguments and
       --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
       --long 256 --block 64      # chunked long-context ingestion
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --long 256 --block 64      # the shared block windowed over a block
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b
+                                 # prefill from precomputed embeddings
+
+The LM families only: whisper's decode runs in the tests, as in the
+reference.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -36,22 +45,28 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--long", type=int, default=0,
-                    help="long-context ingest length (ssm only)")
+                    help="long-context ingest length (ssm/hybrid only)")
     ap.add_argument("--block", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_smoke_config(canonical(args.arch))
+    if cfg.family == "audio":
+        raise SystemExit("the serve launcher covers LM families; whisper "
+                         "decode is exercised in tests/test_torch_encdec.py")
+    if args.long and cfg.family not in ("ssm", "hybrid"):
+        raise SystemExit("--long needs a sub-quadratic arch (ssm/hybrid)")
+    if args.long and cfg.family == "hybrid":
+        cfg = cfg.with_(hybrid=dataclasses.replace(
+            cfg.hybrid, attn_window_long=args.block))
+    dev = resolve_device(args.device)
     model = init_lm(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     b = args.batch
 
     if args.long:
-        if cfg.family not in ("ssm", "hybrid"):
-            raise SystemExit("--long needs a sub-quadratic arch (ssm/hybrid)")
         tokens = torch.randint(0, cfg.vocab, (b, args.long), generator=gen,
                                device=dev)
         ingest = make_long_ingest(cfg, block=args.block)
@@ -66,8 +81,12 @@ def main(argv=None) -> int:
     tokens = torch.randint(0, cfg.vocab, (b, args.prompt_len), generator=gen,
                            device=dev)
     prefill = make_prefill_step(cfg)
+    # vlm: the prompt is precomputed (vision + text) embeddings
+    batch = {"tokens": tokens} if cfg.embed_inputs else {
+        "embeds": torch.randn((b, args.prompt_len, cfg.d_model),
+                              generator=gen, device=dev).to(cfg.dtype)}
     t0 = time.perf_counter()
-    logits = prefill(model, {"tokens": tokens})
+    logits = prefill(model, batch)
     _sync(dev)
     print(f"[prefill] {args.prompt_len} tokens x{b}: "
           f"{time.perf_counter() - t0:.2f}s")

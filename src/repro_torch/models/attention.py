@@ -1,5 +1,7 @@
-"""GQA attention with RoPE: prefill (full or windowed causal) and one-token
-decode against a KV cache.
+"""GQA attention with RoPE: prefill (full or windowed causal),
+cross-attention (queries from x, keys and values from an encoder's
+output), banded ``windowed_attention``, and one-token decode against a KV
+cache.
 
 Counterpart of ``repro/models/attention.py``. Public tensors keep the JAX
 layout (B, S, H, hd). Prefill attention goes through the flash wrapper
@@ -17,6 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.nn import frozen, normal
@@ -113,26 +116,67 @@ def blocked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         for start in range(0, q.shape[1], q_block)], dim=1)
 
 
+def windowed_attention(q, k, v, window: int):
+    """Banded causal attention: each position sees the previous ``window``
+    positions, itself included. q (B, S, H, hd), k/v (B, S, KH, hd); S must
+    be a multiple of ``window``. Chunked as the reference does: the queries
+    of chunk i score against chunks i-1 and i (a zero chunk before the
+    first, masked), so the scores are O(S * 2W), float32 softmax. Plain
+    torch, as the reference is jnp; no model calls it."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    g, w = h // kh, window
+    if s % w:
+        raise ValueError(f"seq {s} is not a multiple of window {w}")
+    nc = s // w
+    kc = k.reshape(b, nc, w, kh, hd)
+    vc = v.reshape(b, nc, w, kh, hd)
+    k2 = torch.cat([F.pad(kc[:, :-1], (0, 0, 0, 0, 0, 0, 1, 0)), kc], dim=2)
+    v2 = torch.cat([F.pad(vc[:, :-1], (0, 0, 0, 0, 0, 0, 1, 0)), vc], dim=2)
+    qg = q.reshape(b, nc, w, kh, g, hd)
+    scores = torch.einsum("bnqkgh,bnskh->bnkgqs", qg.float(), k2.float()) \
+        * softmax_scale(hd)
+    qpos = torch.arange(w, device=q.device)[:, None] + w
+    kpos = torch.arange(2 * w, device=q.device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - w)          # (W, 2W)
+    first = torch.arange(nc, device=q.device) == 0
+    valid = mask[None] & ~(first[:, None, None] & (kpos < w)[None])
+    scores = scores.masked_fill(~valid[None, :, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bnkgqs,bnskh->bnqkgh", probs, v2.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
 
 def attention_apply(p: Attention, x, *, n_heads, n_kv_heads, head_dim,
                     rope_theta, positions=None, causal=True,
-                    window: Optional[int] = None, dtype=None,
-                    impl: str = "flash"):
-    """Self-attention over a prompt, x (B, S, D) -> (B, S, D). (The
-    cross-attention of the encoder-decoder comes with the audio archs.)"""
+                    window: Optional[int] = None, kv_override=None,
+                    dtype=None, impl: str = "flash"):
+    """Attention over a prompt, x (B, S, D) -> (B, S, D). With
+    ``kv_override`` (B, Sk, D), cross-attention: queries from x, keys and
+    values from ``kv_override``, no RoPE, never causal, and (as in the
+    reference) no q/k/v biases."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     dtype = dtype or x.dtype
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, dtype)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    cos, sin = rope_freqs(head_dim, rope_theta, positions)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if kv_override is None:
+        q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, dtype)
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        cos, sin = rope_freqs(head_dim, rope_theta, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    else:
+        src = kv_override
+        sk = src.shape[1]
+        q = (x @ p.wq.to(dtype)).reshape(b, s, n_heads, head_dim)
+        k = (src @ p.wk.to(dtype)).reshape(b, sk, n_kv_heads, head_dim)
+        v = (src @ p.wv.to(dtype)).reshape(b, sk, n_kv_heads, head_dim)
+        causal = False
     if impl == "flash":
         out = flash_attention(q, k, v, causal=causal, window=window)
     else:
@@ -141,9 +185,14 @@ def attention_apply(p: Attention, x, *, n_heads, n_kv_heads, head_dim,
 
 
 class KVCache(NamedTuple):
+    """``start``: the position of slot 0 (0 but for a cache seeded from a
+    long ingest's window); ``window``: decode attends the last ``window``
+    positions only (None: every filled slot)."""
     k: torch.Tensor        # (B, S_max, K, hd)
     v: torch.Tensor
     length: int            # tokens currently in the cache
+    start: int = 0
+    window: Optional[int] = None
 
 
 def init_kv_cache(batch, max_len, n_kv_heads, head_dim, dtype=torch.bfloat16,
@@ -157,22 +206,26 @@ def attention_decode(p: Attention, x, cache: KVCache, *, n_heads, n_kv_heads,
                      head_dim, rope_theta, dtype=None):
     """One-token decode: x (B, 1, D) against ``cache``; returns (y (B, 1, D),
     cache with the token appended). The cache tensors are updated in place
-    (the JAX package returns new arrays); only the filled prefix enters the
-    softmax, where the JAX package masks the rest to exactly zero."""
+    (the JAX package returns new arrays); only the filled prefix (its last
+    ``cache.window`` slots, with a window) enters the softmax, where the
+    JAX package masks the rest to exactly zero. The token sits at position
+    ``cache.start + cache.length``."""
     dtype = dtype or x.dtype
     b = x.shape[0]
-    pos = cache.length
-    if pos >= cache.k.shape[1]:
+    slot = cache.length
+    pos = cache.start + slot
+    if slot >= cache.k.shape[1]:
         raise ValueError(f"KV cache of {cache.k.shape[1]} positions is full")
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, dtype)
     cos, sin = rope_freqs(head_dim, rope_theta,
                           torch.arange(pos, pos + 1, device=x.device))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
-    keys = cache.k[:, :pos + 1].float()
-    vals = cache.v[:, :pos + 1].float()
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    lo = 0 if cache.window is None else max(0, slot + 1 - cache.window)
+    keys = cache.k[:, lo:slot + 1].float()
+    vals = cache.v[:, lo:slot + 1].float()
     g = n_heads // n_kv_heads
     qg = q.reshape(b, 1, n_kv_heads, g, head_dim).float()
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, keys) \
@@ -180,4 +233,4 @@ def attention_decode(p: Attention, x, cache: KVCache, *, n_heads, n_kv_heads,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, vals)
     out = out.reshape(b, 1, n_heads * head_dim).to(dtype)
-    return out @ p.wo.to(dtype), KVCache(k=cache.k, v=cache.v, length=pos + 1)
+    return out @ p.wo.to(dtype), cache._replace(length=slot + 1)

@@ -24,12 +24,14 @@ from repro_torch.kernels.linear_scan import (LOG_DECAY_MAX, LOG_DECAY_MIN,
 
 def chunked_linear_attention(q, k, v, log_decay, *, bonus=None,
                              chunk: int = 16, initial_state=None,
-                             mode: str = "rwkv"):
+                             per_channel: bool = True, mode: str = "rwkv"):
     """q, k (B, S, H, dk); v (B, S, H, dv); log_decay (B, S, H, dk) or
     (B, S, H, 1); bonus (H, dk) (rwkv only). Returns (y (B, S, H, dv),
     final_state (B, H, dk, dv)), both float32. Only forwards to
     ``linear_scan``; kept so that the model code and the tests name the
-    function as the JAX module does."""
+    function as the JAX module does. ``per_channel`` is accepted and
+    ignored, as by the JAX package's kernel path: the decay's last dim (dk
+    or 1) says which it is."""
     return linear_scan(q, k, v, log_decay, bonus=bonus,
                        initial_state=initial_state, chunk=chunk, mode=mode)
 

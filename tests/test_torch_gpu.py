@@ -497,6 +497,8 @@ FLASH_CASES = [
     (1, 64, 256, 7, 1, 128, True, None),        # Sq < Sk (chunked prefill)
     (2, 77, 131, 4, 2, 16, True, 33),           # ragged, window, Sq < Sk
     (1, 96, 96, 2, 2, 32, False, 40),           # window, not causal
+    (2, 1500, 1500, 6, 6, 64, False, None),     # whisper encoder
+    (2, 448, 1500, 6, 6, 64, False, None),      # whisper cross-attention
 ]
 
 
@@ -586,6 +588,8 @@ SCAN_CASES = [
     (1, 96, 3, 32, 48, 16, "rwkv", True, False, False),
     (2, 128, 4, 64, 64, 16, "ssm", False, False, True),    # scalar decay
     (1, 64, 2, 16, 40, 8, "ssm", True, False, False),      # ragged dv tile
+    (2, 512, 64, 64, 64, 128, "ssm", False, False, False), # zamba2 prefill
+    (2, 4096, 64, 64, 64, 128, "ssm", False, False, True), # its ingest block
 ]
 
 
@@ -646,20 +650,53 @@ def test_linear_scan_refuses_dk_over_128(cuda):
     assert _build.LINEAR_SCAN.launches == before
 
 
-def test_smoke_lms_on_the_card_match_the_cpu(cuda):
-    """Smoke-scale qwen2 and rwkv6 in float32 from the same weights: the
-    kernels on the card against the plain versions on the CPU, 1e-4."""
+def test_linear_scan_refuses_per_channel_decay_at_chunk_128(cuda):
+    """A per-channel decay keeps (chunk, dk) rows in shared memory: at
+    chunk 128 and dk = dv = 64 they do not fit, and the call raises before
+    any launch (a scalar decay at that shape runs, SCAN_CASES)."""
+    q = torch.ones((1, 128, 1, 64), device=cuda)
+    before = _build.LINEAR_SCAN.launches
+    with pytest.raises(ValueError, match="per-channel decay do not fit"):
+        linear_scan(q, q, q, -q, chunk=128, mode="ssm")
+    assert _build.LINEAR_SCAN.launches == before
+
+
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_3b", "starcoder2_15b",
+                                  "nemotron4_15b", "qwen2_72b", "olmoe_1b_7b",
+                                  "arctic_480b", "zamba2_1p2b", "pixtral_12b",
+                                  "whisper_tiny"])
+def test_smoke_lms_on_the_card_match_the_cpu(cuda, arch):
+    """Every smoke-scale arch in float32 from the same weights: the kernels
+    on the card against the plain versions on the CPU, 1e-4 (whisper
+    through ``encode`` and ``decode_train``, vlm from embeddings).
+    qwen2-72b's smoke config has head dim 8, for which the flash kernel is
+    not built (16, 32, 64, 128): it runs here at head dim 16."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.models.encdec import decode_train, encode, init_encdec
     from repro_torch.models.lm import init_lm, lm_forward
-    for arch in ("qwen2_7b", "rwkv6_3b"):
-        cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+    cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+    if cfg.hd not in HEAD_DIMS:
+        cfg = cfg.with_(head_dim=16)
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab, (2, 96), generator=gen)
+    if cfg.family == "audio":
+        cpu = init_encdec(cfg, seed=3, device="cpu")
+        card = init_encdec(cfg, seed=3, device="cpu").to(cuda)
+        audio = torch.randn((2, 150, cfg.d_model), generator=gen)
+        enc = encode(cpu, audio)
+        want = decode_train(cpu, tokens, enc)
+        got_enc = encode(card, audio.to(cuda))
+        torch.testing.assert_close(got_enc.cpu(), enc, atol=1e-4, rtol=1e-4)
+        got = decode_train(card, tokens.to(cuda), got_enc)
+    else:
         cpu = init_lm(cfg, seed=3, device="cpu")
         card = init_lm(cfg, seed=3, device="cpu").to(cuda)
-        tokens = torch.randint(0, cfg.vocab, (2, 96),
-                               generator=torch.Generator().manual_seed(4))
-        want = lm_forward(cpu, tokens=tokens)[0]
-        got = lm_forward(card, tokens=tokens.to(cuda))[0]
-        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        kw = ({"tokens": tokens} if cfg.embed_inputs else
+              {"embeds": torch.randn((2, 96, cfg.d_model), generator=gen)})
+        want = lm_forward(cpu, **kw)[0]
+        got = lm_forward(card, **{k: v.to(cuda) for k, v in kw.items()})[0]
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
 def test_kernels_count_their_launches(cuda):

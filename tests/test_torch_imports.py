@@ -66,7 +66,14 @@ def test_port_imports_nothing_of_jax_or_repro():
     for name in ("repro_torch.kernels.quantize", "repro_torch.codec.rans",
                  "repro_torch.pipeline.plan", "repro_torch.bridge",
                  "repro_torch.serve.gateway", "repro_torch.obs.trace",
-                 "repro_torch.launch.gateway_demo"):
+                 "repro_torch.launch.gateway_demo",
+                 "repro_torch.models.moe", "repro_torch.models.mamba2",
+                 "repro_torch.models.encdec",
+                 "repro_torch.configs.olmoe_1b_7b",
+                 "repro_torch.configs.arctic_480b",
+                 "repro_torch.configs.zamba2_1p2b",
+                 "repro_torch.configs.pixtral_12b",
+                 "repro_torch.configs.whisper_tiny"):
         assert name in res["modules"]
 
 

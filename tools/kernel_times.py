@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's six kernels on the card, for one checkout.
 
-    python3 tools/kernel_times.py [--src ROOT] [--phases]
+    python3 tools/kernel_times.py [--src ROOT] [--phases | --plans | --lm]
 
 Needs one CUDA device and nvcc. Times, with ``chip_smoke.py``'s profiler
 helper (device time and device operations per call, 20 calls after a warm
@@ -24,7 +24,8 @@ shapes ``chip_smoke.py`` times them:
     cdf path, ``channel_histogram_cdf`` on the path's codes: its device
     time and device operations;
   - flash attention and the linear scan (prefill and ingest block) through
-    ``chip_smoke.time_lm_kernels``.
+    ``chip_smoke.time_lm_kernels`` (the scan at zamba2's chunk of 128 only
+    where ROOT's scan kernel takes it); ``--lm`` times these alone.
 
 So two checkouts can be compared on one card, with one way of reading the
 profiler, by running this script in turns, e.g. with the parent unpacked
@@ -80,6 +81,20 @@ def takes(fn, keyword: str) -> bool:
     return keyword in inspect.signature(fn).parameters
 
 
+def time_lm(dev, gen) -> None:
+    """flash and the linear scan at chip_smoke's shapes."""
+    from repro_torch.kernels.linear_scan import _smem_floats
+
+    def row(name, src, replaces, kernel, plain, nbytes, library, note,
+            **_):
+        print(f"time {name} ({note}): device {kernel[0]!r} ms per call, "
+              f"{kernel[2]!r} device operations per call")
+    # the scan takes a chunk of 128 with a scalar decay where its shared
+    # memory is reckoned by the decay's kind
+    cs.time_lm_kernels(dev, row, gen,
+                       zamba_scan=takes(_smem_floats, "per_channel"))
+
+
 def time_checkout(dev) -> None:
     import torch
     from repro_torch.kernels import quantize as quant
@@ -124,11 +139,7 @@ def time_checkout(dev) -> None:
     report("cdf path, one request: channel_histogram_cdf on the path's "
            "codes", lambda: channel_histogram_cdf(host, cs.BITS, device=dev))
 
-    def row(name, src, replaces, kernel, plain, nbytes, library, note,
-            **_):
-        print(f"time {name} ({note}): device {kernel[0]!r} ms per call, "
-              f"{kernel[2]!r} device operations per call")
-    cs.time_lm_kernels(dev, row, gen)
+    time_lm(dev, gen)
 
 
 def variant(kernel, edits, tag: str):
@@ -273,6 +284,8 @@ def main() -> int:
     ap.add_argument("--plans", action="store_true",
                     help="time this checkout's consolidate kernel under "
                          "other tiles of rows")
+    ap.add_argument("--lm", action="store_true",
+                    help="time flash attention and the linear scan only")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -289,6 +302,9 @@ def main() -> int:
         time_phases(dev)
     elif args.plans:
         time_plans(dev)
+    elif args.lm:
+        import torch
+        time_lm(dev, torch.Generator().manual_seed(1))
     else:
         time_checkout(dev)
     return 0
