@@ -2726,6 +2726,30 @@ def hybrid_lm_path(dev) -> dict:
                 n_scan=n_scan, n_flash=n_flash, n_scan_ingest=n_scan_ingest)
 
 
+def _flash_launches_by_call(fn):
+    """Run ``fn`` with every flash call of ``attention_apply`` observed:
+    -> (fn's result, {(causal, Sq, Sk): launches}). A call adds what the
+    kernel's own counter gained over it, so a call that took the plain path
+    adds 0; the counter itself is bumped only by the wrapper."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import attention as attn_mod
+    real = attn_mod.flash_attention
+    tally: dict = {}
+
+    def observed(q, k, v, *, causal=True, window=None):
+        before = _build.FLASH_ATTENTION.launches
+        out = real(q, k, v, causal=causal, window=window)
+        key = (bool(causal), q.shape[1], k.shape[1])
+        tally[key] = tally.get(key, 0) + \
+            _build.FLASH_ATTENTION.launches - before
+        return out
+    attn_mod.flash_attention = observed
+    try:
+        return fn(), tally
+    finally:
+        attn_mod.flash_attention = real
+
+
 def whisper_path(dev) -> dict:
     """whisper-tiny, full config: B=2, WHISPER_FRAMES seeded frame
     embeddings through the encoder (flash once a layer) and a
@@ -2762,8 +2786,13 @@ def whisper_path(dev) -> dict:
     _build.reset_launches()
     enc, t_enc = _timed(dev, lambda: encode(model, audio))
     n_enc = _build.FLASH_ATTENTION.launches
-    logits, t_dec = _timed(dev, lambda: decode_train(model, tokens, enc))
+    (logits, by_call), t_dec = _timed(dev, lambda: _flash_launches_by_call(
+        lambda: decode_train(model, tokens, enc)))
     n_dec = _build.FLASH_ATTENTION.launches - n_enc
+    # self-attention is causal over the tokens; cross-attention is not, and
+    # its keys are the encoder's frames
+    n_self = by_call.pop((True, WHISPER_TOKENS, WHISPER_TOKENS), 0)
+    n_cross = by_call.pop((False, WHISPER_TOKENS, WHISPER_FRAMES), 0)
     cache = init_encdec_cache(model, enc, WHISPER_TOKENS + GEN + 1)
 
     def fill(model, cache):
@@ -2786,10 +2815,12 @@ def whisper_path(dev) -> dict:
     last_decode, t_decode = _timed(dev, decode)
     launches = launch_counts()
     print(f"whisper-tiny flash launches: encoder {n_enc} (expected "
-          f"{ed.enc_layers}), decoder pass {n_dec} (expected "
-          f"{2 * ed.dec_layers}: self- and cross-attention); all launches "
-          f"over the path {launches}")
-    if n_enc != ed.enc_layers or n_dec != 2 * ed.dec_layers or \
+          f"{ed.enc_layers}), decoder pass {n_dec}: self-attention {n_self} "
+          f"and cross-attention {n_cross} (expected {ed.dec_layers} each), "
+          f"other calls {by_call}; all launches over the path {launches}")
+    if n_enc != ed.enc_layers or n_self != ed.dec_layers or \
+            n_cross != ed.dec_layers or by_call or \
+            n_dec != n_self + n_cross or \
             launches["flash_attention"] != n_enc + n_dec:
         raise AssertionError("whisper-tiny did not launch flash once an "
                              "attention")
@@ -2844,7 +2875,7 @@ def whisper_path(dev) -> dict:
     del logits, plain, filled, logits32, plain32, filled32
     torch.cuda.empty_cache()
     return dict(launches=launches, times=times, checks=checks, n_enc=n_enc,
-                n_dec=n_dec)
+                n_self=n_self, n_cross=n_cross)
 
 
 def zoo_paths(dev) -> dict:
@@ -2867,11 +2898,9 @@ def zoo_paths(dev) -> dict:
     launches["linear_scan/zamba2_ingest_block"] = zamba["n_scan_ingest"]
     torch.cuda.empty_cache()
     whisper = whisper_path(dev)
-    # the decoder pass's launches are its self- and cross-attention, one
-    # each a layer
     launches["flash_attention/whisper_encoder"] = whisper["n_enc"]
-    launches["flash_attention/whisper_decoder"] = whisper["n_dec"] // 2
-    launches["flash_attention/whisper_cross"] = whisper["n_dec"] // 2
+    launches["flash_attention/whisper_decoder"] = whisper["n_self"]
+    launches["flash_attention/whisper_cross"] = whisper["n_cross"]
     torch.cuda.empty_cache()
     return launches
 

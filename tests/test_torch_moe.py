@@ -202,7 +202,9 @@ def test_moe_prefill_equals_cache_fill_when_nothing_drops(arch):
     in either. The smoke configs have 8 experts: an 8-token prompt has
     capacity 8, which no expert can exceed (at 12 and 16 tokens some expert
     gets 9 or 10 of its rows in these weights, and at 512 most would).
-    ``chip_smoke.py`` holds the full configs at a 16-token prompt."""
+    ``chip_smoke.py`` holds the full configs at an 8-token prompt for the
+    same reason: capacity is then 8, and a token takes an expert at most
+    once, so no expert can get more rows than it has slots."""
     tcfg = configs.get_smoke_config(arch).with_(dtype=torch.float32)
     params = jax.tree.map(np.asarray, jax_init_lm(jax.random.PRNGKey(2),
                                                   jax_smoke_config(arch)))
