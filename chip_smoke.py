@@ -24,7 +24,7 @@ package ``repro``. Phases, each printing lines before the last:
      at 1, 8 and 12 bits, row-major and through the (S, C) view of a
      (C, S) buffer as the cdf path reads and writes it; flash
      attention (f32 and bf16, causal or not, window, Sq < Sk, GQA 7 and 1,
-     hd 16, 64 and 128, ragged S, the qwen2-7b prefill's shape, the detect
+     hd 8, 16, 64 and 128, ragged S, the qwen2-7b prefill's shape, the detect
      head's (8, 4096, 2, 16) float32 and the 15B prefills' GQA 48/4 and
      48/8 bf16, the zoo's prefills (olmoe 16/16, arctic 56/8, pixtral
      32/8, zamba2's shared block 32/32 at hd 64) and whisper's encoder
@@ -141,6 +141,23 @@ package ``repro``. Phases, each printing lines before the last:
      (whisper through its encoder, decoder pass and decode, pixtral from
      embeddings, the ssm and hybrid ingests and their states): the kernels
      on the card against the plain versions on the CPU;
+ 10a. LM training: flash and the scan under autograd at the training
+     runs' shapes, head dim 8 and a window (outputs with a graph, one
+     launch a call and none in the backward, the gradients against
+     autograd through the plain versions); every arch at smoke scale, one
+     training step of 2 microbatches in float32 on the card against the
+     CPU (the loss and every gradient, then AdamW from the same
+     gradients), and qwen2-72b's smoke config as published (bf16, head
+     dim 8) one step on the card; then zamba2-1.2b (38 layers, B=4 x
+     1024), whisper-tiny (B=2, 1500 frames, 448 tokens), qwen2-7b (4 of
+     28 layers, B=2 x 512) and rwkv6-3b (8 of 32, B=2 x 512) at full width,
+     bf16 over float32 master weights, 2 microbatches, full remat: step 1's
+     loss and named gradient leaves with the kernels against the same step
+     with the plain versions swapped in (float32 and bf16), the bf16 loss
+     the same over two runs, 3 steps with their times, tokens/s, peak
+     memory, launches in the forward and in the backward against the
+     config's count, and one more step profiled: its busy time split into
+     the forward, the backward (remat recompute included) and the rest;
  11. times: each kernel's device time and device operations per call at
      its path's shapes (torch.profiler) beside its bound, its plain version
      and, where one PyTorch call computes the same function, that call; the
@@ -152,7 +169,11 @@ package ``repro``. Phases, each printing lines before the last:
      prefill (its launches in the prefill) and ingest block
      (``linear_scan/ingest_block``, its launches in the ingest), and at
      zamba2-1.2b's (``linear_scan/zamba2_prefill``,
-     ``linear_scan/zamba2_ingest_block``).
+     ``linear_scan/zamba2_ingest_block``); flash at head dim 8 in both
+     dtypes (``flash_attention/hd8_f32``, ``hd8_bf16``), and flash and the
+     scan at the training runs' shapes (``*/train_<arch>``, their launches
+     a training step, forward and recompute) with their plain-torch
+     backward's time (``backward_ms``).
 
 Then one JSON line with every kernel's numbers, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any failed
@@ -161,6 +182,7 @@ CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -270,6 +292,58 @@ FLASH_PATH_SHAPES = (
                                      6, 6, 64, True)),
     ("whisper_cross", "bfloat16", (QWEN_B, WHISPER_TOKENS, WHISPER_FRAMES,
                                    6, 6, 64, False)))
+# LM training (phase 10a): LM_TRAIN_STEPS steps of TRAIN_MB microbatches
+# at full width, bf16 over float32 master weights, as (arch, layers kept:
+# None for all, B, S, weight seed, token seed). zamba2-1.2b (1.2 B) and
+# whisper-tiny train whole; qwen2-7b keeps 4 of 28 layers (its embedding
+# and head, 1.09 B, at full width: ~2.0 B) and rwkv6-3b 8 of 32 (~0.9 B),
+# so that the master weights, AdamW's moments and the gradients (~20 B a
+# parameter) fit one card. Whisper also takes WHISPER_FRAMES frames.
+LM_TRAIN_STEPS, TRAIN_MB = 3, 2
+# the schedule launch/train.py gives a short run: peak 3e-4 after
+# max(steps // 20, 5) warm-up steps
+TRAIN_PEAK_LR, TRAIN_WARMUP = 3e-4, 5
+# the smoke-scale training step: B=4 rows of SMOKE_TRAIN_S tokens, 2
+# microbatches (qwen2-72b's smoke flash: (2, 64, 8/2, hd 8) a microbatch)
+SMOKE_TRAIN_S = 64
+TRAIN_FULL = (("zamba2_1p2b", None, 4, 1024, 9, 19),
+              ("whisper_tiny", None, 2, WHISPER_TOKENS, 10, 20),
+              ("qwen2_7b", 4, 2, 512, 11, 21),
+              ("rwkv6_3b", 8, 2, 512, 12, 22))
+# The gradient leaves held at step 1, by family: the embedding, one layer's
+# attention (or its in-projection) and the final norm.
+GATE_LEAVES = {
+    "dense": ("embed", "layers.0.attn.wq", "final_norm.scale"),
+    "ssm": ("embed", "layers.0.wr", "final_norm.scale"),
+    "hybrid": ("embed", "layers.0.in_proj", "shared.attn.wq",
+               "final_norm.scale"),
+    "audio": ("dec_embed", "enc_layers.0.attn.wq", "dec_layers.0.xattn.wq",
+              "dec_norm.scale")}
+# Step 1 with the kernels against the plain versions in float32: 1e-3 of
+# the largest entry (10 to 40 layers of float32 sums in another order).
+# The kernels' own gradients against autograd through the plain versions:
+# 1e-4 of the largest entry (the plain-torch backward, float32 sums in
+# another order).
+TRAIN_F32_RTOL = 1e-3
+TRAIN_KERNEL_RTOL = 1e-4
+# Flash and the scan under autograd at the training runs' shapes (one
+# microbatch), (label, (B, Sq, Sk, H, KH, hd, causal, window)) and (label,
+# (B, S, H, dk, dv, chunk, mode)); the "train_" labels are rows of the
+# JSON line.
+FLASH_TRAIN_SHAPES = (
+    ("train_zamba2_1p2b", (2, 1024, 1024, 32, 32, 64, True, None)),
+    ("train_qwen2_7b", (1, 512, 512, 28, 4, 128, True, None)),
+    ("train_whisper_encoder", (1, WHISPER_FRAMES, WHISPER_FRAMES, 6, 6, 64,
+                               False, None)),
+    ("train_whisper_decoder", (1, WHISPER_TOKENS, WHISPER_TOKENS, 6, 6, 64,
+                               True, None)),
+    ("train_whisper_cross", (1, WHISPER_TOKENS, WHISPER_FRAMES, 6, 6, 64,
+                             False, None)),
+    ("hd8", (2, SMOKE_TRAIN_S, SMOKE_TRAIN_S, 8, 2, 8, True, None)),
+    ("window", (1, 300, 300, 8, 2, 64, True, 100)))
+SCAN_TRAIN_SHAPES = (
+    ("train_zamba2_1p2b", (2, 1024, 64, 64, 64, 128, "ssm")),
+    ("train_rwkv6_3b", (1, 512, 40, 64, 64, 16, "rwkv")))
 # The scan at zamba2's shapes, (label, S, initial state): its 512-token
 # prefill and its ingest block; B = 2, 64 heads, dk = dv = 64, chunk 128,
 # ssm mode, a (B, S, H, 1) decay.
@@ -663,6 +737,8 @@ def check_lm_kernels(dev) -> dict:
         (1, 300, 300, 14, 2, 128, True, 100),     # window, GQA 7
         (1, 64, 256, 7, 1, 128, True, None),      # Sq < Sk
         (2, 77, 131, 4, 2, 16, True, 33),         # ragged, window, Sq < Sk
+        (2, 200, 200, 8, 2, 8, True, None),       # hd 8 (qwen2-72b smoke)
+        (1, 77, 131, 4, 4, 8, True, 33),          # hd 8, ragged, window
     ]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
@@ -2998,6 +3074,486 @@ def lms_card_vs_cpu(dev) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10a: LM training
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The models' kernel calls swapped for the plain versions: flash in
+    ``attention_apply``, the scan in ``chunked_linear_attention``."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.linear_scan import linear_scan_plain
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import linear_attention as la_mod
+    real = attn_mod.flash_attention, la_mod.linear_scan
+    attn_mod.flash_attention = (
+        lambda q, k, v, *, causal=True, window=None:
+        flash_attention_plain(q, k, v, causal=causal, window=window))
+    la_mod.linear_scan = linear_scan_plain
+    try:
+        yield
+    finally:
+        attn_mod.flash_attention, la_mod.linear_scan = real
+
+
+@contextlib.contextmanager
+def phase_counts():
+    """The trainer's loss-and-gradients call observed: yields a dict that
+    collects the launches of each kernel made while computing the loss
+    ("forward") and while taking the gradients ("backward": the remat
+    recompute and the backward)."""
+    import torch
+    from repro_torch.train import trainer
+    real = trainer._LossAndGrads.forward
+    tally = {"forward": {}, "backward": {}}
+
+    def add(part, a, b):
+        for k in a:
+            tally[part][k] = tally[part].get(k, 0) + b[k] - a[k]
+
+    def observed(self, batch, leaves):
+        c0 = launch_counts()
+        loss = self.loss_fn(self.model, batch)
+        c1 = launch_counts()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        add("forward", c0, c1)
+        add("backward", c1, launch_counts())
+        return loss.detach(), grads
+    trainer._LossAndGrads.forward = observed
+    try:
+        yield tally
+    finally:
+        trainer._LossAndGrads.forward = real
+
+
+def training_profile(dev, label: str, fn, top: int = 10) -> None:
+    """One training step under ``torch.profiler`` with each microbatch's
+    forward and backward (the remat recompute included) inside a named
+    range that ends in a synchronise, so each kernel falls in the range
+    whose host window holds its start: the device's busy time, its top
+    kernels, and the busy ms and share of the forward, the backward and
+    the rest (casts, accumulation, AdamW)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.train import trainer
+    real = trainer._LossAndGrads.forward
+
+    def ranged(self, batch, leaves):
+        with record_function("phase:forward"):
+            loss = self.loss_fn(self.model, batch)
+            torch.cuda.synchronize()
+        with record_function("phase:backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            torch.cuda.synchronize()
+        return loss.detach(), grads
+    sync(dev)
+    trainer._LossAndGrads.forward = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            wall = time.perf_counter() - t0
+    finally:
+        trainer._LossAndGrads.forward = real
+    events = prof.events()
+    windows = {part: [(e.time_range.start, e.time_range.end)
+                      for e in events if e.device_type == DeviceType.CPU
+                      and e.name == f"phase:{part}"]
+               for part in ("forward", "backward")}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("phase:")]
+    busy = {"forward": 0.0, "backward": 0.0, "rest": 0.0}
+    by_name: dict = {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        part = next((p for p, ws in windows.items()
+                     if any(a <= e.time_range.start < b for a, b in ws)),
+                    "rest")
+        busy[part] += us
+    total = sum(busy.values())
+    if not windows["forward"] or not windows["backward"] or not total:
+        raise RuntimeError(f"{label}: the profiler recorded no phase "
+                           f"ranges or no device time")
+    ms = {k: v / 1e3 for k, v in busy.items()}
+    print(f"{label}: device busy {total / 1e3!r} ms of {wall * 1e3!r} ms "
+          f"wall under the profiler (busy share {total / 1e6 / wall!r}); "
+          f"of the busy time: forward {ms['forward']!r} ms "
+          f"({busy['forward'] / total!r}), backward with the remat "
+          f"recompute {ms['backward']!r} ms ({busy['backward'] / total!r}),"
+          f" the rest (casts, accumulation, AdamW) {ms['rest']!r} ms "
+          f"({busy['rest'] / total!r}); top kernels: " + "; ".join(
+              f"{k[:60]} {us / 1e3!r} ms" for k, us in sorted(
+                  by_name.items(), key=lambda kv: -kv[1])[:top]))
+
+
+def _grad_gap(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return _dist(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def train_kernel_grads(dev, errs: dict) -> None:
+    """The flash and scan kernels under autograd on the card, at the
+    training shapes of the full-width runs below: outputs with a graph,
+    one launch a call and none in the backward, the output against the
+    plain version (FLASH_TOL, SCAN_TOL), and the gradients against
+    autograd through the plain version: TRAIN_KERNEL_RTOL of the largest
+    entry in float32; in bf16 within twice the plain bf16 gradient's
+    distance from float32. Also head dim 8 and a window. The errors go
+    into ``errs`` under the training rows' names."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
+
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def check(label, kernel, plain, base, cot, counter, out_tol):
+        """base: float32 inputs (None allowed); the first three are cast
+        to the dtype, the rest stay float32. -> {dtype name: the output's
+        max abs diff}."""
+        worst = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            def leaves(dt):
+                return [None if t is None else
+                        (t.to(dt) if i < 3 else t).detach()
+                        .requires_grad_(True) for i, t in enumerate(base)]
+
+            def grads(fn, dt):
+                ins = leaves(dt)
+                out = fn(*ins)
+                outs = out if isinstance(out, tuple) else (out,)
+                wrt = [t for t in ins if t is not None]
+                return outs, torch.autograd.grad(
+                    outs, wrt, [c.to(o.dtype) for c, o in zip(cot, outs)])
+            before = counter.launches
+            outs, got = grads(kernel, dtype)
+            sync(dev)
+            if counter.launches != before + 1 or outs[0].grad_fn is None:
+                raise AssertionError(f"{label}: {counter.launches - before} "
+                                     f"launches, grad_fn {outs[0].grad_fn}")
+            pouts, want = grads(plain, dtype)
+            outs = [o.detach() for o in outs]
+            pouts = [o.detach() for o in pouts]
+            name = str(dtype).split(".")[1]
+            fwd = max_abs_diff(zip(outs, pouts))
+            if not all(torch.allclose(a.float(), b.float(), atol=out_tol[name],
+                                      rtol=out_tol[name])
+                       for a, b in zip(outs, pouts)):
+                raise AssertionError(f"{label} {name}: outputs differ")
+            gaps = [_grad_gap(a, b) for a, b in zip(got, want)]
+            if dtype == torch.float32:
+                bound = [TRAIN_KERNEL_RTOL] * len(gaps)
+                why = f"{TRAIN_KERNEL_RTOL} of the largest entry"
+            else:
+                _, want32 = grads(plain, torch.float32)
+                bound = [2 * _grad_gap(b, c) for b, c in zip(want, want32)]
+                why = "2 x the plain bf16 gradient's distance from float32"
+            print(f"train kernel {label} {name}: output max abs diff "
+                  f"{fwd!r}; gradients over their largest entry "
+                  f"{[round(x, 9) for x in gaps]!r}, bounds "
+                  f"{[round(x, 9) for x in bound]!r} ({why})")
+            if not all(a <= b for a, b in zip(gaps, bound)):
+                raise AssertionError(f"{label} {name}: gradients differ")
+            worst[name] = fwd
+        return worst
+
+    for label, (b, sq, sk, h, kh, hd, causal, window) in FLASH_TRAIN_SHAPES:
+        base = [torch.randn((b, s, n, hd), generator=g, device=dev)
+                for s, n in ((sq, h), (sk, kh), (sk, kh))]
+        cot = [torch.randn((b, sq, h, hd), generator=g, device=dev)]
+        kw = dict(causal=causal, window=window)
+        err = check(f"flash {label}", lambda q, k, v: flash_attention(
+            q, k, v, **kw), lambda q, k, v: flash_attention_plain(
+            q, k, v, **kw), base, cot, _build.FLASH_ATTENTION, FLASH_TOL)
+        if label.startswith("train_"):
+            errs[f"flash_attention/{label}"] = max(err.values())
+        if label == "hd8":
+            errs["flash_attention/hd8_f32"] = err["float32"]
+            errs["flash_attention/hd8_bf16"] = err["bfloat16"]
+    for label, (b, s_, h, dk, dv, chunk, mode) in SCAN_TRAIN_SHAPES:
+        qk_heads = h if mode == "rwkv" else 1
+        raw = torch.randn((b, s_, h, dk if mode == "rwkv" else 1),
+                          generator=g, device=dev)
+        base = [torch.randn((b, s_, qk_heads, dk), generator=g,
+                            device=dev) * 0.5 for _ in range(2)] + [
+            torch.randn((b, s_, h, dv), generator=g, device=dev),
+            -torch.exp(raw - 1.0) if mode == "rwkv" else
+            -F.softplus(raw - 2.0) * 0.6931,
+            torch.randn((h, dk), generator=g, device=dev) * 0.3
+            if mode == "rwkv" else None,
+            torch.randn((b, h, dk, dv), generator=g, device=dev)]
+        cot = [torch.randn((b, s_, h, dv), generator=g, device=dev),
+               torch.randn((b, h, dk, dv), generator=g, device=dev)]
+
+        def scan_of(fn):
+            def run(q, k, v, ld, u, s0):
+                return fn(q.expand(b, s_, h, dk), k.expand(b, s_, h, dk), v,
+                          ld, bonus=u, initial_state=s0, chunk=chunk,
+                          mode=mode)
+            return run
+        errs[f"linear_scan/{label}"] = max(check(
+            f"scan {label}", scan_of(linear_scan), scan_of(linear_scan_plain),
+            base, cot, _build.LINEAR_SCAN,
+            {"float32": SCAN_TOL, "bfloat16": SCAN_TOL}).values())
+
+
+def _train_batch(cfg, b, s, gen, dev) -> dict:
+    """Seeded tokens (and whisper's frame embeddings) -> a training batch:
+    the labels are the tokens shifted by one."""
+    import torch
+    tokens = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                           device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.randn(
+            (b, WHISPER_FRAMES, cfg.d_model), generator=gen, device=dev)
+    return batch
+
+
+def train_smoke_card_vs_cpu(dev) -> dict:
+    """Every arch at smoke scale in float32 (TF32 off), one training step
+    of 2 microbatches from the same seeded weights and batch: the loss and
+    the gradients on the card (the kernels forward, their plain-torch
+    backward) against the CPU (the plain versions) at LM_CPU_TOL of each
+    leaf's largest |g|; then AdamW's update (the trainer's, leaf by leaf
+    into the state) on both from the CPU's gradients, at LM_CPU_TOL.
+    qwen2-72b at its published head dim 8, and also one step of its smoke
+    config as published (bf16) on the card: a finite loss. -> the flash
+    launches of qwen2-72b's two steps (the head-dim-8 rows)."""
+    import torch
+    from repro_torch.configs import PORTED, get_smoke_config
+    from repro_torch.train import trainer as tr
+
+    cpu = torch.device("cpu")
+    worst, hd8 = 0.0, {}
+    for arch in PORTED:
+        cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+        tcfg = tr.TrainConfig(num_microbatches=2, peak_lr=1e-2,
+                              warmup_steps=0, total_steps=10)
+        params = tr.init_params(cfg, seed=13, device=cpu)
+        gen = torch.Generator().manual_seed(14)
+        tokens = torch.randint(0, cfg.vocab, (4, SMOKE_TRAIN_S + 1),
+                               generator=gen)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        if cfg.family == "audio":
+            batch["audio_embeds"] = torch.randn((4, 150, cfg.d_model),
+                                                generator=gen)
+        elif not cfg.embed_inputs:
+            batch["embeds"] = torch.randn((4, SMOKE_TRAIN_S, cfg.d_model),
+                                          generator=gen)
+        grads_of = tr.make_grads_fn(cfg, tcfg)
+        card_params = {k: v.detach().to(dev).requires_grad_(True)
+                       for k, v in params.items()}
+        before = launch_counts()
+        card_loss, card_g = grads_of(card_params,
+                                     {k: v.to(dev) for k, v in batch.items()})
+        launched = {k: v - before[k] for k, v in launch_counts().items()
+                    if v - before[k]}
+        cpu_loss, cpu_g = grads_of(params, batch)
+        gaps = [_grad_gap(card_g[k].cpu(), w) for k, w in cpu_g.items()]
+        ok = abs(float(card_loss) - float(cpu_loss)) <= \
+            LM_CPU_TOL * abs(float(cpu_loss)) and max(gaps) <= LM_CPU_TOL
+        ok = ok and all(torch.allclose(card_g[k].cpu(), w, rtol=LM_CPU_TOL,
+                                       atol=LM_CPU_TOL * float(w.abs().max()))
+                        for k, w in cpu_g.items())
+        # the update from the CPU's gradients on both devices
+        lr = torch.tensor(1e-2)
+        states = [tr.init_train_state(p, tcfg) for p in (card_params, params)]
+        for st in states:
+            d = next(iter(st.params.values())).device
+            tr._update(st, {k: v.to(d) for k, v in cpu_g.items()}, lr,
+                       tcfg.adamw)
+        upd = max_abs_diff((states[0].params[k].detach().cpu(), v.detach())
+                           for k, v in states[1].params.items())
+        ok = ok and upd <= LM_CPU_TOL
+        print(f"{arch} smoke training step in float32, card vs CPU (2 "
+              f"microbatches; launches on the card {launched}): loss "
+              f"{float(card_loss)!r} vs {float(cpu_loss)!r}; largest "
+              f"gradient difference {max(gaps)!r} of the leaf's largest |g| "
+              f"over {len(gaps)} leaves; AdamW from the CPU's gradients, "
+              f"card vs CPU: max abs diff {upd!r} (tolerance {LM_CPU_TOL})")
+        if not ok or not launched:
+            raise AssertionError(f"{arch}: training step differs between "
+                                 f"card and CPU")
+        worst = max(worst, max(gaps))
+        if arch == "qwen2_72b":
+            hd8["flash_attention/hd8_f32"] = launched["flash_attention"]
+            c16 = get_smoke_config(arch)
+            state = tr.init_train_state(
+                tr.init_params(c16, seed=13, device=dev), tcfg)
+            before = launch_counts()["flash_attention"]
+            _, m = tr.make_train_step(c16, tcfg)(
+                state, {k: v.to(dev) for k, v in batch.items()})
+            sync(dev)
+            hd8["flash_attention/hd8_bf16"] = \
+                launch_counts()["flash_attention"] - before
+            print(f"{arch} smoke config as published ({c16.dtype}, head dim "
+                  f"{c16.hd}): one training step on the card, loss "
+                  f"{float(m['loss'])!r}, "
+                  f"{hd8['flash_attention/hd8_bf16']} flash launches")
+            if not torch_isfinite(m["loss"]):
+                raise AssertionError(f"{arch}: bf16 smoke loss not finite")
+    print(f"smoke training, card vs CPU: worst gradient difference "
+          f"{worst!r} of the leaf's largest |g|")
+    return hd8
+
+
+def _expected_launches(cfg) -> dict:
+    """Kernel launches of one forward the config implies."""
+    if cfg.family == "audio":
+        return {"flash_attention": cfg.encdec.enc_layers
+                + 2 * cfg.encdec.dec_layers}
+    if cfg.family == "ssm":
+        return {"linear_scan": cfg.n_layers}
+    if cfg.family == "hybrid":
+        from repro_torch.models.lm import segment_bounds
+        return {"linear_scan": cfg.n_layers,
+                "flash_attention": len(segment_bounds(cfg))}
+    return {"flash_attention": cfg.n_layers}
+
+
+def train_full_width(dev, arch, n_layers, b, s, seed, token_seed) -> dict:
+    """One arch at full width (``n_layers``: the depth kept, None for all):
+    the gates on step 1 (the loss and the GATE_LEAVES gradients with the
+    kernels against the plain versions swapped in, in float32 at
+    TRAIN_F32_RTOL of the largest entry and in bf16 within twice the plain
+    bf16 path's distance from float32; the bf16 loss the same over two
+    runs), then LM_TRAIN_STEPS steps of 2 microbatches in bf16 over the
+    float32 master: ms a step, tokens/s, peak memory, launches a step
+    (forward and backward apart, against the config's count), and one more
+    step profiled (``training_profile``) -> the launches of a step of each
+    kernel, and of flash by call kind."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.train import trainer as tr
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.with_(n_layers=n_layers)
+    name = cfg.name
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, t_init = _timed(dev, lambda: tr.init_params(cfg, seed=seed,
+                                                        device=dev))
+    nparams = sum(p.numel() for p in params.values())
+    tcfg = tr.TrainConfig(num_microbatches=TRAIN_MB,
+                          peak_lr=TRAIN_PEAK_LR,
+                          warmup_steps=TRAIN_WARMUP,
+                          total_steps=LM_TRAIN_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(token_seed)
+    batches = [_train_batch(cfg, b, s, gen, dev)
+               for _ in range(LM_TRAIN_STEPS + 1)]
+    depth = (f"{cfg.n_layers} layers" if cfg.family != "audio" else
+             f"{cfg.encdec.enc_layers} + {cfg.encdec.dec_layers} layers")
+    print(f"{name} training: {depth}{' (cut in depth)' if n_layers else ''}"
+          f", d_model {cfg.d_model}, {nparams} float32 master parameters "
+          f"drawn on the card in {t_init!r} s; B={b}, S={s}"
+          f"{f', {WHISPER_FRAMES} frames' if cfg.family == 'audio' else ''}"
+          f", {TRAIN_MB} microbatches, remat {tcfg.remat_policy}")
+    leaves = GATE_LEAVES[cfg.family]
+
+    def gate_grads(c, plain=False):
+        grads_of = tr.make_grads_fn(c, tcfg)
+        if plain:
+            with plain_kernels():
+                loss, g = grads_of(params, batches[0])
+        else:
+            loss, g = grads_of(params, batches[0])
+        kept = {k: g[k] for k in leaves}
+        del g
+        return loss, kept
+    c32 = cfg.with_(dtype=torch.float32)
+    k32, p32 = gate_grads(c32), gate_grads(c32, plain=True)
+    k16, p16 = gate_grads(cfg), gate_grads(cfg, plain=True)
+    again = gate_grads(cfg)[0]
+    torch.cuda.empty_cache()
+    for leaf in ("loss",) + leaves:
+        pick = (lambda r: r[0]) if leaf == "loss" else (lambda r: r[1][leaf])
+        gap32 = _grad_gap(pick(k32), pick(p32))
+        gap16, noise = _grad_gap(pick(k16), pick(p32)), \
+            _grad_gap(pick(p16), pick(p32))
+        print(f"{name} step 1 {leaf}: float32 kernels vs plain {gap32!r} of "
+              f"the largest entry (tolerance {TRAIN_F32_RTOL}); bf16 kernels "
+              f"{gap16!r} from the plain float32, the plain bf16 path "
+              f"{noise!r} (tolerance twice that)")
+        if not (gap32 <= TRAIN_F32_RTOL and gap16 <= 2 * noise):
+            raise AssertionError(f"{name} step 1: {leaf} differs")
+    if not (torch_isfinite(k16[0]) and torch.equal(k16[0], again)):
+        raise AssertionError(f"{name}: the bf16 loss of step 1 is not "
+                             f"finite or differs over two runs "
+                             f"({float(k16[0])!r}, {float(again)!r})")
+    print(f"{name} step 1 bf16 loss {float(k16[0])!r} over two runs "
+          f"{float(again)!r}; float32 {float(k32[0])!r}")
+    del k32, p32, k16, p16
+
+    state = tr.init_train_state(params, tcfg)
+    step = tr.make_train_step(cfg, tcfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    want = _expected_launches(cfg)
+    times, losses = [], []
+    for i in range(LM_TRAIN_STEPS):
+        with phase_counts() as tally:
+            ((state, m), by_call), t = _timed(
+                dev, lambda: _flash_launches_by_call(
+                    lambda: step(state, batches[i])))
+        times.append(t)
+        losses.append(float(m["loss"]))
+        fwd = {k: v for k, v in tally["forward"].items() if v}
+        bwd = {k: v for k, v in tally["backward"].items() if v}
+        print(f"{name} step {i + 1}: loss {losses[-1]!r}, grad norm "
+              f"{float(m['grad_norm'])!r}, {t * 1e3!r} ms (host clock, "
+              f"synchronised); launches in the forward {fwd}, in the "
+              f"backward {bwd}")
+        expect = {k: TRAIN_MB * v for k, v in want.items()}
+        if fwd != expect or bwd != expect:
+            raise AssertionError(f"{name}: launches {fwd} forward and {bwd} "
+                                 f"backward, the config implies {expect} "
+                                 f"each (remat recomputes every block)")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: a training loss is not finite")
+    tokens = b * s
+    steady = sum(times[1:]) / (len(times) - 1)
+    print(f"{name} training ({nvidia_smi_line()}): {steady * 1e3!r} ms a "
+          f"step (steps 2-{LM_TRAIN_STEPS}; step 1 {times[0] * 1e3!r} ms), "
+          f"{tokens / steady!r} tokens/s, peak memory {peak!r} GB; losses "
+          f"{losses!r}")
+    training_profile(dev, f"{name} training step",
+                     lambda: step(state, batches[LM_TRAIN_STEPS]))
+    del state, step, params
+    torch.cuda.empty_cache()
+    return dict(launches={k: fwd[k] + bwd[k] for k in fwd}, by_call=by_call)
+
+
+def training_path(dev, errs: dict) -> dict:
+    """Phase 10a -> the launches of each training row of the JSON line: a
+    step's (forward and recompute) launches of flash and the scan at the
+    full-width runs' shapes."""
+    import torch
+    train_kernel_grads(dev, errs)
+    launches = train_smoke_card_vs_cpu(dev)
+    for arch, n_layers, b, s, seed, token_seed in TRAIN_FULL:
+        res = train_full_width(dev, arch, n_layers, b, s, seed, token_seed)
+        if arch == "whisper_tiny":
+            for label, key in (("encoder", (False, WHISPER_FRAMES,
+                                            WHISPER_FRAMES)),
+                               ("decoder", (True, s, s)),
+                               ("cross", (False, s, WHISPER_FRAMES))):
+                launches[f"flash_attention/train_whisper_{label}"] = \
+                    res["by_call"].get(key, 0)
+        else:
+            for k, v in res["launches"].items():
+                launches[f"{k}/train_{arch}"] = v
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: kernel times
 # ---------------------------------------------------------------------------
 
@@ -3159,8 +3715,10 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward,
                                                      flash_attention_plain)
     from repro_torch.kernels.linear_scan import (_scratch_floats, linear_scan,
+                                                 linear_scan_backward,
                                                  linear_scan_plain)
 
     out = []
@@ -3204,6 +3762,29 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
     for label, name, shape in FLASH_PATH_SHAPES:
         out.append(flash_row(f"flash_attention/{label}", getattr(torch, name),
                              shape, notes.get(label, f"{label} prefill")))
+    # head dim 8 at qwen2-72b's smoke training shape, both dtypes
+    hd8 = dict(FLASH_TRAIN_SHAPES)["hd8"][:7]
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        out.append(flash_row(f"flash_attention/hd8_{tag}", dtype, hd8,
+                             "qwen2-72b smoke training step (head dim 8)"))
+    # the training runs' shapes (one microbatch); the backward is plain
+    # torch, timed beside the kernel's forward
+    for label, (b, sq, sk, h, kh, hd, causal, window) in FLASH_TRAIN_SHAPES:
+        if not label.startswith("train_"):
+            continue
+        r = flash_row(f"flash_attention/{label}", torch.bfloat16,
+                      (b, sq, sk, h, kh, hd, causal),
+                      f"{label[6:]} training forward (a microbatch)")
+        q = torch.randn((b, sq, h, hd), generator=g, device=dev) \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((b, sk, kh, hd), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        do = torch.randn_like(q)
+        r["backward_ms"] = timed(lambda: flash_attention_backward(
+            q, k, v, do, causal=causal, window=window))[0]
+        print(f"time {r['name']} backward (plain torch, float32): "
+              f"{r['backward_ms']!r} ms device time per call")
+        out.append(r)
 
     for name, s_, init in (("linear_scan", RWKV_PROMPT, False),
                            ("linear_scan/ingest_block", RWKV_BLOCK, True)):
@@ -3240,6 +3821,43 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
             f"{', initial state' if init else ''}; scratch "
             f"{_scratch_floats(b, h, nc, L, dk, dv) * 4} bytes",
             flops=flops))
+
+    for label, (b, s_, h, dk, dv, L, mode) in SCAN_TRAIN_SHAPES:
+        qs, ks = ((torch.randn((b, s_, 1 if mode == "ssm" else h, dk),
+                               generator=g, device=dev) * 0.5)
+                  .expand(b, s_, h, dk).to(torch.bfloat16).contiguous()
+                  for _ in range(2))
+        vs = torch.randn((b, s_, h, dv), generator=g, device=dev) \
+            .to(torch.bfloat16)
+        raw = torch.randn((b, s_, h, dk if mode == "rwkv" else 1),
+                          generator=g, device=dev)
+        ld = -torch.exp(raw - 1.0) if mode == "rwkv" else \
+            -F.softplus(raw - 2.0) * 0.6931
+        u = torch.randn((h, dk), generator=g, device=dev) * 0.1 \
+            if mode == "rwkv" else None
+        kw = dict(bonus=u, chunk=L, mode=mode)
+        nbytes = b * s_ * h * (2 * dk * 2 + dv * 2 + ld.shape[-1] * 4
+                               + dv * 4) + b * h * dk * dv * 4 \
+            + (h * dk * 4 if u is not None else 0)
+        nc = s_ // L
+        pairs = L * (L - 1) // 2 if mode == "rwkv" else L * (L + 1) // 2
+        per_chunk = (2 * pairs * dk + 2 * pairs * dv + 2 * L * dk * dv
+                     + 2 * L * dk * dv + 3 * L * dk + 5 * L * dk)
+        r = row(f"linear_scan/{label}", "src/repro_torch/csrc/linear_scan.cu",
+                "src/repro/kernels/linear_scan.py:80",
+                timed(lambda: linear_scan(qs, ks, vs, ld, **kw)),
+                timed(lambda: linear_scan_plain(qs, ks, vs, ld, **kw)),
+                nbytes, None,
+                f"{label[6:]} training forward (a microbatch) B={b} S={s_} "
+                f"H={h} dk=dv={dk} chunk {L}, {mode}",
+                flops=float(b * h * nc * per_chunk))
+        dy = torch.randn((b, s_, h, dv), generator=g, device=dev)
+        r["backward_ms"] = timed(lambda: linear_scan_backward(
+            (qs, ks, vs, ld, u, None), dy, None, chunk=L, mode=mode))[0]
+        print(f"time {r['name']} backward (plain torch: the plain "
+              f"version's vjp, recomputed): {r['backward_ms']!r} ms device "
+              f"time per call")
+        out.append(r)
 
     for label, s_, init in ZAMBA_SCAN if zamba_scan else ():
         b, h, dk, dv, L = QWEN_B, 64, 64, 64, 128
@@ -3322,20 +3940,22 @@ def main() -> int:
     errs["flash_attention/detect_head"] = max(
         errs["flash_attention/detect_head"], tasks["detect_err"])
     launches["flash_attention/detect_head"] = tasks["detect_flash"]
-    qwen = dense_lm_path(dev, "qwen2_7b", 0, 10)
-    for arch, seed, token_seed in BIG_LMS:
-        big = dense_lm_path(dev, arch, seed, token_seed,
-                            bf16_spread=BIG_LM_BF16_SPREAD)
-        launches[f"flash_attention/{arch}"] = \
-            big["launches"]["flash_attention"]
-    rwkv = rwkv_path(dev)
-    launches["flash_attention"] = qwen["launches"]["flash_attention"]
-    # the scan's two rows: its launches in the prefill and in the ingest
-    launches["linear_scan"] = rwkv["n_prefill"]
-    launches["linear_scan/ingest_block"] = rwkv["n_ingest"]
-    launches.update(zoo_paths(dev))
-    lms_card_vs_cpu(dev)
+    with torch.no_grad():              # the LM serving phases
+        qwen = dense_lm_path(dev, "qwen2_7b", 0, 10)
+        for arch, seed, token_seed in BIG_LMS:
+            big = dense_lm_path(dev, arch, seed, token_seed,
+                                bf16_spread=BIG_LM_BF16_SPREAD)
+            launches[f"flash_attention/{arch}"] = \
+                big["launches"]["flash_attention"]
+        rwkv = rwkv_path(dev)
+        launches["flash_attention"] = qwen["launches"]["flash_attention"]
+        # the scan's two rows: its launches in the prefill and in the ingest
+        launches["linear_scan"] = rwkv["n_prefill"]
+        launches["linear_scan/ingest_block"] = rwkv["n_ingest"]
+        launches.update(zoo_paths(dev))
+        lms_card_vs_cpu(dev)
     errs["linear_scan/ingest_block"] = errs["linear_scan"]
+    launches.update(training_path(dev, errs))
     rows = time_kernels(dev, errs, launches, res["path_codes"])
     print(f"total {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": rows}))

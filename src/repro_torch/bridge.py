@@ -8,7 +8,8 @@ OIHW; BN statistics, PReLU slopes and dense weights are copied as they are.
 LM and encoder-decoder params keep the JAX (in, out) weight layout; their
 layers, stacked on a leading axis by the JAX package, go one slice to each
 layer module (MoE experts stay stacked within a layer), and each leaf is
-cast to the dtype its module stores it in. Task heads keep
+cast to the dtype its module stores it in; ``master_from_jax`` gives the
+trainer the same leaves as float32 tensors by parameter name. Task heads keep
 the JAX param tree's names; their dense layers' ``w``/``b`` go to
 ``weight``/``bias``.
 """
@@ -119,6 +120,55 @@ def encdec_from_jax(params, cfg: ArchConfig, *, device=None) -> EncDec:
     model = EncDec(cfg, device=device)
     _load_stacked(model, params, ("enc_layers", "dec_layers"))
     return model
+
+
+def _jax_leaf(params, name: str, stacks):
+    """The JAX leaf of the port's parameter ``name``: ``layers.3.attn.wq``
+    is slice 3 of ``params["layers"]["attn"]["wq"]``."""
+    parts = name.split(".")
+    tree, index = params, None
+    if parts[0] in stacks:
+        tree, index, parts = params[parts[0]], int(parts[1]), parts[2:]
+    for key in parts:
+        tree = tree[key]
+    arr = np.asarray(tree, np.float32)
+    return arr if index is None else arr[index]
+
+
+def master_from_jax(params, cfg: ArchConfig, *, device=None) -> dict:
+    """JAX ``init_lm`` or (for the audio family) ``init_encdec`` params
+    (numpy leaves, layers stacked on axis 0) -> the trainer's float32
+    master weights: the port's parameter name -> tensor on ``device``
+    (``None`` = the card), ``requires_grad=True``. The JAX package keeps
+    its params in ``param_dtype`` float32 too; every leaf is used once."""
+    dev = resolve_device(device)
+    if cfg.family == "audio":
+        skeleton, stacks = EncDec(cfg, device="meta"), ("enc_layers",
+                                                        "dec_layers")
+    else:
+        skeleton, stacks = LM(cfg, device="meta"), ("layers",)
+    out = {}
+    for name, p in skeleton.named_parameters():
+        arr = _jax_leaf(params, name, stacks)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: JAX leaf {arr.shape} does not fit "
+                             f"{tuple(p.shape)}")
+        out[name] = torch.tensor(arr, device=dev).requires_grad_(True)
+    n_jax = sum(np.asarray(a).shape[0] if k in stacks else 1
+                for k, a in _leaves(params))
+    if n_jax != len(out):
+        raise ValueError(f"{n_jax} JAX leaves (layers counted one by one) "
+                         f"for {len(out)} parameters")
+    return out
+
+
+def _leaves(tree, top=None):
+    """(top-level key, leaf) over a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, top or k)
+        else:
+            yield top or k, v
 
 
 def heads_from_jax(head_bank: dict, cfg: HeadConfig, *, device=None) -> dict:

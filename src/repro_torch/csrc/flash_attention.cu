@@ -47,10 +47,14 @@
 // Shared layout: a tile is [hd/64 column blocks][rows][64 bf16], one
 // 128-byte line per row, 16-byte chunk c of row r stored at c ^ (r & 7):
 // the 128B swizzle, for every head dim. For hd < 64 a line is padded to 64
-// values: Q.K^T issues only hd/16 k-steps, and P.V runs at N = 64 and drops
-// the columns past hd, so one swizzle mode and one descriptor shape serve
-// hd 16, 32, 64 and 128. cp.async needs 16-byte-aligned sources: the
-// wrapper refuses a base or stride that is not a multiple of 16 bytes.
+// values: Q.K^T issues only max(hd/16, 1) k-steps, and P.V runs at N = 64
+// and drops the columns past hd, so one swizzle mode and one descriptor
+// shape serve hd 8, 16, 32, 64 and 128. At hd 8 the one k-step of 16 values
+// also reads values 8..15 of each Q and K line, which no copy writes: the
+// block sets them to zero once before its first copy, so the padded half
+// of the dot product adds exactly 0. cp.async needs 16-byte-aligned
+// sources: the wrapper refuses a base or stride that is not a multiple of
+// 16 bytes.
 // Numerics: scores and the accumulator in float32 as on the TPU. The TPU
 // kernel multiplies P.V in float32; here P is split into a bf16 high part
 // and a bf16 low part (the rest) and P.V runs as two products, so P keeps
@@ -65,7 +69,8 @@
 // and of the float32 LM checks, so this path stays. 256 threads as 16 x
 // 16; thread (ty, tx) owns q rows ty*4..ty*4+3 and, for each kv tile, key
 // columns tx + 16j (j < 4) of the score tile and output columns tx + 16j
-// (j < hd/16) of the accumulator. Q (transposed, rows padded to 68), K
+// (j < hd/16) of the accumulator; at hd 8 the threads with tx < 8 own one
+// output column each and the others none. Q (transposed, rows padded to 68), K
 // (transposed, padded to 65) and V live in shared memory in float32; P is
 // written over K's buffer once the scores are taken. Row max and row sum
 // are reduced with shuffles over the 16 lanes of a row. expf (not __expf),
@@ -105,7 +110,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NT, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, Shape sh) {
-  constexpr int NJ = HD / 16;   // accumulator columns per thread
+  // accumulator columns per thread; below hd 16 one, owned by tx < HD
+  constexpr int NJ = HD < 16 ? 1 : HD / 16;
   extern __shared__ float smem[];
   float* Qs = smem;                       // [HD][QST]
   float* Ks = Qs + HD * QST;              // [HD][KST], later P as [BK][PST]
@@ -229,7 +235,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float vv = Vs[kk * HD + tx + 16 * j];
+        // a thread past hd (hd 8) reads column 0 and never stores it
+        const int col = HD < 16 && tx >= HD ? 0 : tx + 16 * j;
+        const float vv = Vs[kk * HD + col];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pa[i], vv, acc[i][j]);
       }
@@ -244,7 +252,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + (((long long)b * sh.Sq + row) * sh.H + h) * HD;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      orow[tx + 16 * j] = from_f<T>(acc[i][j] / den);
+      if (HD >= 16 || tx < HD) orow[tx + 16 * j] = from_f<T>(acc[i][j] / den);
   }
 }
 
@@ -445,6 +453,7 @@ __global__ void __launch_bounds__(NT, 2)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, Shape sh) {
   constexpr int NPV = HD < 64 ? 64 : HD;    // P.V width (lines hold 64)
+  constexpr int KSTEPS = HD < 16 ? 1 : HD / 16;   // Q.K^T steps of 16
   constexpr int QT = tile_bytes(BQ, HD), KT = tile_bytes(BK, HD);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -484,6 +493,17 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int wk_lo = 0;
   if (sh.window > 0) wk_lo = max(0, wq0 + q_offset - sh.window + 1);
 
+  if constexpr (HD < 16) {
+    // values 8..15 (16-byte chunk 1) of every line of Q and of both K/V
+    // stages, which the k-step of 16 reads and no copy writes: zeros. The
+    // tiles are consecutive runs of lines, each a multiple of 8 long, so a
+    // line's swizzle phase is its index & 7. Each thread's fence before the
+    // first wgmma makes its writes visible to the tensor cores.
+    uint8_t* base = smem_raw + (sQ - smem_u32(smem_raw));
+    for (int r = tid; r < BQ + 4 * BK; r += NT)
+      *reinterpret_cast<uint4*>(base + r * LINE + ((1 ^ (r & 7)) << 4)) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
   load_tile<HD, BQ>(sQ, qp, sh.qs, q0, sh.Sq, tid);
   if (t_lo <= t_hi) {
     load_tile<HD, BK>(sKV, kp, sh.ks, t_lo * BK, sh.Sk, tid);
@@ -522,7 +542,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 32; ++i) s[i] = 0.0f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < KSTEPS; ++kk) {
         const uint32_t col = (kk & 3) * 32;         // 16 values = 32 bytes
         wgmma_ss_m64n64(
             s,
@@ -680,6 +700,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                  kb, ks, kh, vb, vs, vh};
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
+    case 8: return launch_dtype<T, 8>(q, k, v, o, B, sh, s);
     case 16: return launch_dtype<T, 16>(q, k, v, o, B, sh, s);
     case 32: return launch_dtype<T, 32>(q, k, v, o, B, sh, s);
     case 64: return launch_dtype<T, 64>(q, k, v, o, B, sh, s);

@@ -10,6 +10,13 @@ takes every ``Sq``/``Sk`` (it masks the ragged edge itself), reads the
 head ``h // (H // KH)``, so no repeat and no transpose is made. bf16 runs
 on the tensor cores (wgmma) and needs 16-byte-aligned bases and strides;
 the call raises on others. float32 runs on the CUDA cores.
+
+Gradients: with grad mode on and q, k or v requiring grad, a CUDA call goes
+through ``_FlashAttention``, a ``torch.autograd.Function`` whose forward is
+the same launch and whose backward is :func:`flash_attention_backward`, the
+gradient of the same function in plain torch from the saved q, k, v. The
+JAX package has no backward kernel (no ``custom_vjp`` around its Pallas
+call: XLA differentiates its reference path), so there is none here.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations
+HEAD_DIMS = (8, 16, 32, 64, 128)   # the kernel's instantiations
 _ENTRIES = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 
@@ -69,6 +76,47 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+_BACKWARD_Q_BLOCK = 1024      # query rows a step of the plain backward
+
+
+def flash_attention_backward(q, k, v, dout, *, causal: bool = True,
+                             window: int | None = None):
+    """The gradient of :func:`flash_attention_plain` with respect to q, k
+    and v at the cotangent ``dout`` (B, Sq, H, hd), in plain torch and
+    float32, each returned in its input's dtype. With P the softmax of the
+    masked, scaled scores and dP = dO V^T: dV = P^T dO, dS = P (dP -
+    rowsum(P dP)), dQ = scale dS K, dK = scale dS^T Q; a kv head's dK and
+    dV sum over the q heads that share it. The scores are recomputed
+    _BACKWARD_Q_BLOCK query rows at a time, so the buffers are that many
+    rows of Sk per head."""
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = softmax_scale(hd)
+    f32 = torch.float32
+    kf = k.to(f32).repeat_interleave(g, dim=2)          # (B, Sk, H, hd)
+    vf = v.to(f32).repeat_interleave(g, dim=2)
+    dk = torch.zeros((b, sk, h, hd), dtype=f32, device=q.device)
+    dv = torch.zeros((b, sk, h, hd), dtype=f32, device=q.device)
+    dq = []
+    for start in range(0, sq, _BACKWARD_Q_BLOCK):
+        qb = q[:, start:start + _BACKWARD_Q_BLOCK].to(f32)
+        dob = dout[:, start:start + _BACKWARD_Q_BLOCK].to(f32)
+        scores = torch.einsum("bqhd,bshd->bhqs", qb, kf) * scale
+        mask = attention_mask(sk - sq + start, qb.shape[1], sk,
+                              causal=causal, window=window, device=q.device)
+        probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), -1)
+        dv += torch.einsum("bhqs,bqhd->bshd", probs, dob)
+        dp = torch.einsum("bqhd,bshd->bhqs", dob, vf)
+        ds = probs * (dp - (probs * dp).sum(-1, keepdim=True)) * scale
+        dq.append(torch.einsum("bhqs,bshd->bqhd", ds, kf))
+        dk += torch.einsum("bhqs,bqhd->bshd", ds, qb)
+    dk = dk.reshape(b, sk, kh, g, hd).sum(3)
+    dv = dv.reshape(b, sk, kh, g, hd).sum(3)
+    return (torch.cat(dq, dim=1).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def _check_16_byte_aligned(name: str, t: torch.Tensor) -> None:
     """The bf16 kernel copies rows in 16-byte pieces (``cp.async``): the
     base and every stride it steps by must be multiples of 16 bytes."""
@@ -82,6 +130,36 @@ def _check_16_byte_aligned(name: str, t: torch.Tensor) -> None:
                              f"elements of {t.element_size()} bytes")
 
 
+def _launch(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
+    """The kernel on CUDA tensors the wrapper has checked."""
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    dev, stream = _build.stream_args(q)
+    _build.FLASH_ATTENTION.launch(
+        _ENTRIES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, sq, sk, h, kh, hd, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], int(causal),
+        0 if window is None else window, dev, stream)
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with the plain-torch gradient behind it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, dout, causal=ctx.causal,
+                                          window=ctx.window), None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
@@ -89,7 +167,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     in q's dtype. Causal masking is aligned by ``Sk - Sq``; ``window`` keeps
     the previous ``window`` keys (the query's own included). Causal calls
     with Sq > Sk are refused: their first Sq - Sk rows would see no key,
-    where the reference gives NaN and the TPU kernel a mean of v."""
+    where the reference gives NaN and the TPU kernel a mean of v. On the
+    card, with grad mode on and an input that requires grad, the output
+    carries the gradient of q, k and v."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, heads, hd)")
     b, sq, h, hd = q.shape
@@ -108,8 +188,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    entry = _ENTRIES.get(q.dtype)
-    if entry is None or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash kernel takes float32 or bfloat16 q, k, v of "
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS:
@@ -122,11 +201,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_16_byte_aligned(name, t)
-    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
-    dev, stream = _build.stream_args(q)
-    _build.FLASH_ATTENTION.launch(
-        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kh, hd, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], int(causal), 0 if window is None else window, dev,
-        stream)
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)

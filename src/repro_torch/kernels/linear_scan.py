@@ -10,6 +10,15 @@ chunk overflows exactly where the reference's does). Both clamp the
 log-decay to [LOG_DECAY_MIN, -1e-9], broadcast a (..., 1) decay over dk
 and a (H, dk) bonus over the batch, and read the heads in place from
 (B, S, H, d).
+
+Gradients: with grad mode on and any input requiring grad, a CUDA call goes
+through ``_LinearScan``, a ``torch.autograd.Function`` whose forward is the
+same launch and whose backward is :func:`linear_scan_backward`: the vjp of
+``linear_scan_plain``, recomputed in plain torch from the saved inputs, for
+q, k, v, the log-decay (summed back to a (B, S, H, 1) decay's shape), the
+bonus and the initial state, with the cotangents of both outputs. The JAX
+package has no backward kernel (XLA differentiates its reference path), so
+there is none here.
 """
 from __future__ import annotations
 
@@ -97,10 +106,81 @@ def linear_scan_plain(q, k, v, log_decay, *, bonus=None, initial_state=None,
     return y.permute(1, 0, 3, 2, 4).reshape(b, s, h, dv), state
 
 
+def linear_scan_backward(inputs, dy, dstate, *, chunk: int, mode: str):
+    """The gradient of :func:`linear_scan_plain` at ``inputs`` = (q, k, v,
+    log_decay, bonus, initial_state) (bonus and initial_state may be None)
+    for the cotangents ``dy`` and ``dstate`` of its two outputs (either may
+    be None): the plain version's vjp, recomputed. One gradient per input,
+    each in its input's dtype and shape; None for an absent input."""
+    leaves = [None if t is None else t.detach().requires_grad_(True)
+              for t in inputs]
+    wrt = [t for t in leaves if t is not None]
+    with torch.enable_grad():
+        y, state = linear_scan_plain(*leaves[:4], bonus=leaves[4],
+                                     initial_state=leaves[5], chunk=chunk,
+                                     mode=mode)
+        outs = [o for o, g in ((y, dy), (state, dstate)) if g is not None]
+        grads = torch.autograd.grad(
+            outs, wrt, [g for g in (dy, dstate) if g is not None],
+            allow_unused=True)
+    it = iter(grads)
+    out = []
+    for t in leaves:
+        g = None if t is None else next(it)
+        out.append(None if t is None else
+                   torch.zeros_like(t) if g is None else g.to(t.dtype))
+    return tuple(out)
+
+
+def _launch(q, k, v, log_decay, bonus, initial_state, chunk: int,
+            mode: str):
+    """The kernel's two passes on CUDA tensors the wrapper has checked."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    dev_t = q.device
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    ld = log_decay.to(torch.float32).contiguous()
+    u = None if bonus is None else bonus.to(torch.float32).contiguous()
+    s0 = None if initial_state is None else \
+        initial_state.to(torch.float32).contiguous()
+    y = torch.empty((b, s, h, dv), dtype=torch.float32, device=dev_t)
+    state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev_t)
+    # scratch: each chunk's k_rem, qd, v, y_intra and decays, from the
+    # chunk pass to the carry pass
+    scratch = torch.empty(_scratch_floats(b, h, s // chunk, chunk, dk, dv),
+                          dtype=torch.float32, device=dev_t)
+    dev, stream = _build.stream_args(q)
+    _build.LINEAR_SCAN.launch(
+        _ENTRIES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ld.data_ptr(), None if u is None else u.data_ptr(),
+        None if s0 is None else s0.data_ptr(), y.data_ptr(), state.data_ptr(),
+        scratch.data_ptr(), b, s, h, dk, dv, chunk,
+        int(mode == "rwkv"), int(log_decay.shape[3] == dk), dev, stream)
+    return y, state
+
+
+class _LinearScan(torch.autograd.Function):
+    """The kernel's forward with the plain version's vjp behind it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_decay, bonus, initial_state, chunk, mode):
+        ctx.save_for_backward(q, k, v, log_decay, bonus, initial_state)
+        ctx.chunk, ctx.mode = chunk, mode
+        return _launch(q, k, v, log_decay, bonus, initial_state, chunk, mode)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return (*linear_scan_backward(ctx.saved_tensors, dy, dstate,
+                                      chunk=ctx.chunk, mode=ctx.mode),
+                None, None)
+
+
 def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
                 chunk: int = 16, mode: str = "rwkv"):
     """Same contract as :func:`linear_scan_plain`; S must be a multiple of
-    ``chunk``. On the card q, k, v are float32 or bf16 of one dtype."""
+    ``chunk``. On the card q, k, v are float32 or bf16 of one dtype, and
+    with grad mode on and an input that requires grad, y and the final
+    state carry the gradients of every input."""
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
             or v.shape[:3] != q.shape[:3]:
         raise ValueError(f"q, k must be (B, S, H, dk) and v (B, S, H, dv); "
@@ -127,8 +207,7 @@ def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
                                  mode=mode)
     if q.device.type != "cuda":
         raise ValueError(f"no linear-scan kernel for device {q.device}")
-    entry = _ENTRIES.get(q.dtype)
-    if entry is None or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"linear-scan kernel takes float32 or bfloat16 q, "
                          f"k, v of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
@@ -139,26 +218,11 @@ def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
                          f"{'a per-channel' if per_channel else 'a scalar'} "
                          f"decay do not fit the kernel: a block's shared "
                          f"memory and dk <= {_MAX_DK}")
-    dev_t = q.device
-    for t in (k, v, log_decay, bonus, initial_state):
-        if t is not None and t.device != dev_t:
+    inputs = (q, k, v, log_decay, bonus, initial_state)
+    for t in inputs[1:]:
+        if t is not None and t.device != q.device:
             raise ValueError("all inputs must be on one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    ld = log_decay.to(torch.float32).contiguous()
-    u = None if bonus is None else bonus.to(torch.float32).contiguous()
-    s0 = None if initial_state is None else \
-        initial_state.to(torch.float32).contiguous()
-    y = torch.empty((b, s, h, dv), dtype=torch.float32, device=dev_t)
-    state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev_t)
-    # scratch: each chunk's k_rem, qd, v, y_intra and decays, from the
-    # chunk pass to the carry pass
-    scratch = torch.empty(_scratch_floats(b, h, s // chunk, chunk, dk, dv),
-                          dtype=torch.float32, device=dev_t)
-    dev, stream = _build.stream_args(q)
-    _build.LINEAR_SCAN.launch(
-        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), ld.data_ptr(),
-        None if u is None else u.data_ptr(),
-        None if s0 is None else s0.data_ptr(), y.data_ptr(), state.data_ptr(),
-        scratch.data_ptr(), b, s, h, dk, dv, chunk,
-        int(mode == "rwkv"), int(per_channel), dev, stream)
-    return y, state
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in inputs):
+        return _LinearScan.apply(*inputs, chunk, mode)
+    return _launch(*inputs, chunk, mode)

@@ -10,6 +10,11 @@ learned positions (8192 of them) and the output head tied to
 decode attends the self-attention KV caches and the cross K/V computed once
 from the encoder's output.
 
+``encode`` and ``decode_train`` are grad-transparent (serving callers run
+them under ``torch.no_grad()``); when gradients flow, every encoder and
+decoder block runs under the reference's fixed ``full`` remat, and
+``encdec_loss`` is the training loss.
+
 The reference is inconsistent with itself, and the port copies it:
 ``attention_apply``'s cross-attention (``encode``/``decode_train``) adds
 no q/k/v biases, while ``init_encdec_cache`` and ``encdec_decode_step``
@@ -17,6 +22,7 @@ add them. With ``init_encdec``'s zero biases the two agree.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -29,7 +35,8 @@ from repro_torch.models.attention import (Attention, KVCache,
                                           attention_apply, attention_decode,
                                           init_kv_cache)
 from repro_torch.models.ffn import FFN, ffn_apply
-from repro_torch.nn import LayerNorm, frozen, normal
+from repro_torch.models.lm import checkpointed, xent_loss
+from repro_torch.nn import LayerNorm, frozen, normal, seeded
 
 N_POS = 8192            # learned decoder positions
 
@@ -65,7 +72,7 @@ class EncDec(nn.Module):
         if cfg.encdec is None:
             raise ValueError(f"{cfg.name} has no encoder-decoder config")
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded(dev, seed)
         ed = cfg.encdec
         self.cfg = cfg
         self.enc_layers = nn.ModuleList(
@@ -95,18 +102,27 @@ def _attn(cfg: ArchConfig, p: Attention, x, **kw):
                            rope_theta=cfg.rope_theta, dtype=cfg.dtype, **kw)
 
 
-@torch.no_grad()
+def _blocks(fn, layers, x):
+    """x through ``fn(layer, x)`` for each layer, each block under the
+    reference's ``full`` remat when gradients flow."""
+    remat = torch.is_grad_enabled()
+    for lp in layers:
+        step = functools.partial(fn, lp)
+        x = checkpointed(step)(x) if remat else step(x)
+    return x
+
+
 def encode(model: EncDec, audio_embeds, *, attention: str = "flash"):
     """audio_embeds (B, S_enc, D) -> the encoder's output (B, S_enc, D)."""
-    x = audio_embeds.to(model.cfg.dtype)
-    for lp in model.enc_layers:
-        x = x + _attn(model.cfg, lp.attn, lp.ln1(x), causal=False,
-                      impl=attention)
-        x = x + ffn_apply(lp.ffn, lp.ln2(x), dtype=model.cfg.dtype)
+    cfg = model.cfg
+
+    def block(lp, x):
+        x = x + _attn(cfg, lp.attn, lp.ln1(x), causal=False, impl=attention)
+        return x + ffn_apply(lp.ffn, lp.ln2(x), dtype=cfg.dtype)
+    x = _blocks(block, model.enc_layers, audio_embeds.to(cfg.dtype))
     return model.enc_norm(x)
 
 
-@torch.no_grad()
 def decode_train(model: EncDec, tokens, enc_out, *, attention: str = "flash"):
     """Teacher-forced decoder pass: tokens (B, S_dec) -> logits (B, S_dec,
     V). Beyond 8192 tokens the position table repeats."""
@@ -116,14 +132,25 @@ def decode_train(model: EncDec, tokens, enc_out, *, attention: str = "flash"):
     pos = model.dec_pos
     if s > pos.shape[0]:
         pos = pos.repeat(-(-s // pos.shape[0]), 1)
-    x = model.dec_embed[tokens].to(dtype) + pos[:s][None].to(dtype)
-    for lp in model.dec_layers:
+
+    def block(lp, x):
         x = x + _attn(cfg, lp.attn, lp.ln1(x), causal=True, impl=attention)
         x = x + _attn(cfg, lp.xattn, lp.ln_x(x), kv_override=enc_out,
                       impl=attention)
-        x = x + ffn_apply(lp.ffn, lp.ln2(x), dtype=dtype)
-    x = model.dec_norm(x)
+        return x + ffn_apply(lp.ffn, lp.ln2(x), dtype=dtype)
+    x = model.dec_embed[tokens].to(dtype) + pos[:s][None].to(dtype)
+    x = model.dec_norm(_blocks(block, model.dec_layers, x))
     return x @ model.dec_embed.t().to(dtype)
+
+
+def encdec_loss(model: EncDec, batch: dict, *, attention: str = "flash"):
+    """``xent_loss`` of the teacher-forced logits of ``batch["tokens"]``
+    over the encoding of ``batch["audio_embeds"]`` against
+    ``batch["labels"]``."""
+    enc_out = encode(model, batch["audio_embeds"], attention=attention)
+    logits = decode_train(model, batch["tokens"], enc_out,
+                          attention=attention)
+    return xent_loss(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

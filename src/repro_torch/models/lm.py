@@ -16,23 +16,30 @@ Counterpart of ``repro/models/lm.py``:
             prompt is longer than 65536 tokens
 
 The JAX package stacks the layers on a leading axis and scans them; here
-the LM holds one module per layer and loops. Remat and the training
-losses are not ported yet (ROADMAP Queue 1 step 10). The audio family is
-the encoder-decoder of ``models/encdec.py``. Weights are drawn from a
-seeded ``torch.Generator`` on the target device with the JAX
+the LM holds one module per layer and loops. The forwards are
+grad-transparent (serving callers run them under ``torch.no_grad()``).
+When gradients flow, each block, and the hybrid's shared block, runs under
+``torch.utils.checkpoint`` with the reference's remat policies (``full``
+saves nothing, ``dots`` the matmul outputs, ``dots_no_batch`` those
+without a batch dim); ``xent_loss`` and ``lm_loss`` are the training loss.
+The audio family is the encoder-decoder of ``models/encdec.py``. Weights
+are drawn from a seeded ``torch.Generator`` on the target device with the JAX
 initialisers' distributions; they cannot reproduce ``jax.random``, so
 parity checks carry JAX weights across with ``bridge.lm_from_jax``.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.nn import LayerNorm, RMSNorm, frozen, normal
+from repro_torch.nn import LayerNorm, RMSNorm, frozen, normal, seeded
 from repro_torch.models.attention import (Attention, KVCache,
                                           attention_apply, attention_decode,
                                           init_kv_cache)
@@ -58,8 +65,12 @@ def check_family(cfg: ArchConfig) -> None:
 
 
 def _norm(cfg: ArchConfig, device) -> nn.Module:
-    cls = RMSNorm if cfg.norm == "rmsnorm" else LayerNorm
-    return cls(cfg.d_model, dtype=cfg.param_dtype, device=device)
+    """RMSNorm (with the low-memory backward when ``cfg.norm_grad`` is
+    ``"bf16"``, as the reference's ``_norm`` dispatches) or LayerNorm."""
+    if cfg.norm == "rmsnorm":
+        return RMSNorm(cfg.d_model, dtype=cfg.param_dtype, device=device,
+                       lowmem=cfg.norm_grad == "bf16")
+    return LayerNorm(cfg.d_model, dtype=cfg.param_dtype, device=device)
 
 
 class AttnBlock(nn.Module):
@@ -105,13 +116,15 @@ def segment_bounds(cfg: ArchConfig) -> list[tuple[int, int]]:
 
 class LM(nn.Module):
     """Embedding, ``n_layers`` blocks, final norm and LM head. ``device=None``
-    means the card; the weights are drawn there from ``seed``."""
+    means the card; the weights are drawn there from ``seed``. On the
+    ``meta`` device the weights have shapes and no values: a skeleton for
+    ``torch.func.functional_call``."""
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device=None):
         super().__init__()
         check_family(cfg)
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded(dev, seed)
         self.cfg = cfg
         self.layers = nn.ModuleList([_layer(cfg, gen, dev)
                                      for _ in range(cfg.n_layers)])
@@ -153,40 +166,85 @@ def _attn_ffn_block(lp: AttnBlock, x, cfg: ArchConfig, *, window=None,
     return x + y, aux
 
 
-@torch.no_grad()
+REMAT_POLICIES = ("full", "dots", "dots_no_batch")
+# the ops whose outputs a policy keeps (``jax.checkpoint_policies``
+# ``checkpoint_dots`` and ``checkpoint_dots_with_no_batch_dims``): ``x @ w``
+# with a 2-D weight dispatches to mm/addmm, an einsum with a batch dim to
+# bmm/baddbmm
+_SAVED_OPS = {
+    "dots": (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+             torch.ops.aten.baddbmm),
+    "dots_no_batch": (torch.ops.aten.mm, torch.ops.aten.addmm),
+}
+
+
+def _saved_by(ops, ctx, op, *args, **kwargs):
+    if getattr(op, "overloadpacket", None) in ops:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(fn, policy: str = "full"):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): ``full``
+    keeps only its inputs and recomputes the rest in the backward; ``dots``
+    and ``dots_no_batch`` also keep the outputs of their matmuls."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {policy!r}")
+    kw = {}
+    if policy != "full":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_saved_by, _SAVED_OPS[policy]))
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _layer_block(lp, x, cfg: ArchConfig, *, window, dtype, attention,
+                 routes):
+    """One layer of the stack -> (y, aux)."""
+    if cfg.family == "ssm":
+        return rwkv6_block(lp, x, head_dim=cfg.ssm.head_dim,
+                           chunk=cfg.ssm.chunk, dtype=dtype), 0.0
+    if cfg.family == "hybrid":
+        return mamba2_block(lp, x, state_dim=cfg.ssm.state_dim,
+                            head_dim=cfg.ssm.head_dim, expand=cfg.ssm.expand,
+                            chunk=cfg.ssm.chunk, dtype=dtype), 0.0
+    return _attn_ffn_block(lp, x, cfg, window=window, dtype=dtype,
+                           attention=attention, routes=routes)
+
+
 def lm_hidden(model: LM, *, tokens=None, embeds=None, window=None,
-              attention: str = "flash", routes: list | None = None):
+              attention: str = "flash", routes: list | None = None,
+              remat: bool = True, remat_policy: str = "full"):
     """Run the stack -> (hidden (B, S, D), aux): aux is the MoE balance loss
     summed over the layers (0 for the other families). ``attention`` picks
     the prefill attention of the attention blocks (``"flash"``: the kernel
     wrapper; ``"blocked"``: the plain jnp-path counterpart). ``routes``,
-    when given, gets each MoE layer's ``moe.Routing`` in order."""
+    when given, gets each MoE layer's ``moe.Routing`` in order; such a
+    forward runs without remat, whose recompute would route again. With
+    grad mode on and ``remat``, each block runs under :func:`checkpointed`
+    with ``remat_policy``."""
     cfg = model.cfg
     dtype = cfg.dtype
     x = model.embed[tokens].to(dtype) if embeds is None else embeds.to(dtype)
+    remat = remat and torch.is_grad_enabled() and routes is None
+    wrap = functools.partial(checkpointed, policy=remat_policy) if remat \
+        else (lambda fn: fn)
     aux_total = 0.0
     for lo, hi in segment_bounds(cfg):
         for lp in model.layers[lo:hi]:
-            if cfg.family == "ssm":
-                x = rwkv6_block(lp, x, head_dim=cfg.ssm.head_dim,
-                                chunk=cfg.ssm.chunk, dtype=dtype)
-            elif cfg.family == "hybrid":
-                x = mamba2_block(lp, x, state_dim=cfg.ssm.state_dim,
-                                 head_dim=cfg.ssm.head_dim,
-                                 expand=cfg.ssm.expand, chunk=cfg.ssm.chunk,
-                                 dtype=dtype)
-            else:
-                x, aux = _attn_ffn_block(lp, x, cfg, window=window,
-                                         dtype=dtype, attention=attention,
-                                         routes=routes)
-                aux_total = aux_total + aux
+            x, aux = wrap(functools.partial(
+                _layer_block, lp, cfg=cfg, window=window, dtype=dtype,
+                attention=attention, routes=routes))(x)
+            aux_total = aux_total + aux
         if cfg.family == "hybrid":
             shared_window = window or (cfg.hybrid.attn_window_long
                                        if x.shape[1] > LONG_PROMPT else None)
-            x, _ = _attn_ffn_block(model.shared, x, cfg.with_(moe=None),
-                                   window=shared_window, dtype=dtype,
-                                   attention=attention)
+            x, _ = wrap(functools.partial(
+                _attn_ffn_block, model.shared, cfg=cfg.with_(moe=None),
+                window=shared_window, dtype=dtype, attention=attention))(x)
     return model.final_norm(x), aux_total
+
 
 
 def lm_logits(model: LM, hidden: torch.Tensor) -> torch.Tensor:
@@ -194,14 +252,41 @@ def lm_logits(model: LM, hidden: torch.Tensor) -> torch.Tensor:
     return hidden @ w.to(model.cfg.dtype)
 
 
-@torch.no_grad()
 def lm_forward(model: LM, *, tokens=None, embeds=None, window=None,
-               attention: str = "flash", routes: list | None = None):
+               attention: str = "flash", routes: list | None = None,
+               remat: bool = True, remat_policy: str = "full"):
     """-> (logits (B, S, V) in the compute dtype, aux)."""
     hidden, aux = lm_hidden(model, tokens=tokens, embeds=embeds,
                             window=window, attention=attention,
-                            routes=routes)
+                            routes=routes, remat=remat,
+                            remat_policy=remat_policy)
     return lm_logits(model, hidden), aux
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy in float32: logsumexp minus the gold logit."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+def lm_loss(model: LM, batch: dict, *, window=None, remat: bool = True,
+            remat_policy: str = "full", attention: str = "flash"):
+    """``xent_loss`` of the logits of ``batch["tokens"]`` (or ``embeds``)
+    against ``batch["labels"]``, plus ``aux_loss_weight * aux / n_layers``
+    for an MoE config."""
+    cfg = model.cfg
+    logits, aux = lm_forward(model, tokens=batch.get("tokens"),
+                             embeds=batch.get("embeds"), window=window,
+                             attention=attention, remat=remat,
+                             remat_policy=remat_policy)
+    loss = xent_loss(logits, batch["labels"])
+    if cfg.moe is not None:
+        # a 0-dim divisor on aux's device: an IEEE divide on the card
+        loss = loss + cfg.moe.aux_loss_weight * aux / torch.tensor(
+            float(cfg.n_layers), device=aux.device)
+    return loss
 
 
 # ---------------------------------------------------------------------------

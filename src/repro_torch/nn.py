@@ -2,9 +2,9 @@
 
 Counterpart of ``repro/nn.py`` for the layers the port uses: conv,
 conv-transpose, inference and training BN and the inverse BN, leaky ReLU,
-PReLU, dense (channel-last (B, H, W, C)), and for the LMs RMSNorm,
-LayerNorm and squared ReLU over the last dim, computed in float32 and cast
-back.
+PReLU, dense (channel-last (B, H, W, C)), and for the LMs RMSNorm (also
+with the reference's low-memory backward), LayerNorm and squared ReLU over
+the last dim, computed in float32 and cast back.
 Public tensors stay NHWC as in the JAX package. Convolutions run on the
 NCHW view ``x.permute(0, 3, 1, 2)`` of the NHWC tensor, which PyTorch
 treats as ``channels_last`` memory, so no layout copy is made.
@@ -58,6 +58,14 @@ def he_normal(shape, fan_in: int, gen: torch.Generator | None) -> torch.Tensor:
 def lecun_normal(shape, fan_in: int,
                  gen: torch.Generator | None) -> torch.Tensor:
     return math.sqrt(1.0 / max(fan_in, 1)) * torch.randn(shape, generator=gen)
+
+
+def seeded(device: torch.device, seed: int) -> torch.Generator | None:
+    """A generator on ``device`` seeded with ``seed``; None on the ``meta``
+    device, whose tensors have no values to draw."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def normal(shape, std: float = 0.02, *, gen: torch.Generator | None = None,
@@ -176,6 +184,39 @@ def rmsnorm_apply(x: torch.Tensor, scale: torch.Tensor, *,
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
+class _RMSNormLowMem(torch.autograd.Function):
+    """``rmsnorm_apply`` whose backward keeps the cotangents in the input
+    dtype; only the per-row statistics are float32. The counterpart of
+    ``repro/nn.py::_rmsnorm_lowmem`` (a ``custom_vjp``), with its
+    operations and roundings."""
+
+    @staticmethod
+    def forward(ctx, scale, x, eps):
+        xf = x.float()
+        inv = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(scale, x, inv)
+        return (xf * inv * scale.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, x, inv = ctx.saved_tensors
+        f32 = torch.float32
+        gs = (g * scale.to(g.dtype)).to(x.dtype)
+        dot = (gs.to(f32) * x.to(f32)).sum(dim=-1, keepdim=True)
+        coef = (dot * inv * inv / x.shape[-1]).to(x.dtype)
+        dx = ((gs.to(f32) - coef.to(f32) * x.to(f32)) * inv).to(x.dtype)
+        dscale = (g.to(f32) * (x.to(f32) * inv)).sum(
+            dim=tuple(range(x.ndim - 1))).to(scale.dtype)
+        return dscale, dx, None
+
+
+def rmsnorm_lowmem_apply(x: torch.Tensor, scale: torch.Tensor, *,
+                         eps: float = RMS_EPS) -> torch.Tensor:
+    """RMSNorm with cotangents in the input dtype (float32 row statistics
+    only): the forward of :func:`rmsnorm_apply`, a leaner backward."""
+    return _RMSNormLowMem.apply(scale, x, eps)
+
+
 def layernorm_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     *, eps: float = LN_EPS) -> torch.Tensor:
     """LayerNorm with the population variance, in float32, cast back."""
@@ -268,14 +309,19 @@ class Dense(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm over the last dim; ``scale`` in ``dtype`` (float32 in the LMs)."""
+    """RMSNorm over the last dim; ``scale`` in ``dtype`` (float32 in the LMs).
+    ``lowmem``: the backward of :func:`rmsnorm_lowmem_apply`."""
 
-    def __init__(self, dim: int, *, dtype=torch.float32, device=None):
+    def __init__(self, dim: int, *, dtype=torch.float32, device=None,
+                 lowmem: bool = False):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device),
                                   requires_grad=False)
+        self.lowmem = lowmem
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.lowmem:
+            return rmsnorm_lowmem_apply(x, self.scale)
         return rmsnorm_apply(x, self.scale)
 
 

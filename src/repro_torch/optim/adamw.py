@@ -46,13 +46,18 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(sum(sums))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``min(1, max_norm / max(norm, 1e-12))`` as a 0-dim tensor."""
+    # a tensor numerator: ``float / tensor`` multiplies by a reciprocal
+    return torch.clamp(torch.full_like(norm, max_norm)
+                       / torch.clamp(norm, min=1e-12), max=1.0)
+
+
 def clip_by_global_norm(tree: dict, max_norm: float):
-    """Scale every leaf by ``min(1, max_norm / max(norm, 1e-12))`` ->
+    """Scale every leaf by :func:`clip_scale` of the global norm ->
     (clipped, norm)."""
     norm = global_norm(tree)
-    # a tensor numerator: ``float / tensor`` multiplies by a reciprocal
-    scale = torch.clamp(torch.full_like(norm, max_norm)
-                        / torch.clamp(norm, min=1e-12), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return {k: (g.float() * scale).to(g.dtype) for k, g in tree.items()}, norm
 
 

@@ -44,12 +44,14 @@ def make_prefill_step(cfg: ArchConfig):
     (B, S) or ``embeds`` (B, S, D); for audio ``audio_embeds`` (B, S_enc,
     D) and the decoder's ``tokens``."""
     if cfg.family == "audio":
+        @torch.no_grad()
         def prefill_audio(model, batch: dict):
             enc_out = encode(model, batch["audio_embeds"])
             return decode_train(model, batch["tokens"], enc_out)
         return prefill_audio
     check_family(cfg)
 
+    @torch.no_grad()
     def prefill(model: LM, batch: dict):
         logits, _ = lm_forward(model, tokens=batch.get("tokens"),
                                embeds=batch.get("embeds"))

@@ -106,7 +106,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None):
     """Restore into the structure of ``like`` -> (tree, step), or (None,
     None) when there is nothing to restore. Each leaf takes the type of
-    ``like``'s: a tensor of its dtype on its device, or a numpy array of
+    ``like``'s: a tensor of its dtype on its device (requiring grad where
+    ``like``'s does, as the trainer's master weights), or a numpy array of
     its dtype."""
     if step is None:
         step = latest_step(ckpt_dir)
@@ -128,7 +129,8 @@ def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None):
             raise ValueError(f"checkpoint leaf {saved} {arr.shape} does not "
                              f"fit {name} {tuple(ref.shape)}")
         if isinstance(ref, torch.Tensor):
-            out.append(torch.from_numpy(arr).to(ref.device, ref.dtype))
+            t = torch.from_numpy(arr).to(ref.device, ref.dtype)
+            out.append(t.requires_grad_(True) if ref.requires_grad else t)
         else:
             out.append(arr.astype(np.asarray(ref).dtype))
     return _unflatten(like, iter(out)), step

@@ -499,6 +499,8 @@ FLASH_CASES = [
     (1, 96, 96, 2, 2, 32, False, 40),           # window, not causal
     (2, 1500, 1500, 6, 6, 64, False, None),     # whisper encoder
     (2, 448, 1500, 6, 6, 64, False, None),      # whisper cross-attention
+    (2, 200, 200, 8, 2, 8, True, None),         # hd 8 (qwen2-72b smoke)
+    (1, 77, 131, 4, 4, 8, True, 33),            # hd 8, ragged, window
 ]
 
 
@@ -661,23 +663,21 @@ def test_linear_scan_refuses_per_channel_decay_at_chunk_128(cuda):
     assert _build.LINEAR_SCAN.launches == before
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_3b", "starcoder2_15b",
-                                  "nemotron4_15b", "qwen2_72b", "olmoe_1b_7b",
-                                  "arctic_480b", "zamba2_1p2b", "pixtral_12b",
-                                  "whisper_tiny"])
+ALL_ARCHS = ["qwen2_7b", "rwkv6_3b", "starcoder2_15b", "nemotron4_15b",
+             "qwen2_72b", "olmoe_1b_7b", "arctic_480b", "zamba2_1p2b",
+             "pixtral_12b", "whisper_tiny"]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_smoke_lms_on_the_card_match_the_cpu(cuda, arch):
     """Every smoke-scale arch in float32 from the same weights: the kernels
     on the card against the plain versions on the CPU, 1e-4 (whisper
-    through ``encode`` and ``decode_train``, vlm from embeddings).
-    qwen2-72b's smoke config has head dim 8, for which the flash kernel is
-    not built (16, 32, 64, 128): it runs here at head dim 16."""
+    through ``encode`` and ``decode_train``, vlm from embeddings;
+    qwen2-72b at its published head dim 8)."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
     from repro_torch.models.encdec import decode_train, encode, init_encdec
     from repro_torch.models.lm import init_lm, lm_forward
     cfg = get_smoke_config(arch).with_(dtype=torch.float32)
-    if cfg.hd not in HEAD_DIMS:
-        cfg = cfg.with_(head_dim=16)
     gen = torch.Generator().manual_seed(4)
     tokens = torch.randint(0, cfg.vocab, (2, 96), generator=gen)
     if cfg.family == "audio":
@@ -697,6 +697,166 @@ def test_smoke_lms_on_the_card_match_the_cpu(cuda, arch):
         want = lm_forward(cpu, **kw)[0]
         got = lm_forward(card, **{k: v.to(cuda) for k, v in kw.items()})[0]
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_smoke_training_grads_on_the_card_match_the_cpu(cuda, arch):
+    """One training step's loss and gradients (2 microbatches, float32,
+    remat) at smoke scale: the kernels forward on the card and their
+    plain-torch backward against the plain versions on the CPU, 1e-4 of
+    each leaf's largest |g| (TF32 off)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train.trainer import (TrainConfig, init_params,
+                                           make_grads_fn)
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+    params = init_params(cfg, seed=3, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (4, 65), generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.randn((4, 150, cfg.d_model),
+                                            generator=gen)
+    elif not cfg.embed_inputs:
+        batch["embeds"] = torch.randn((4, 64, cfg.d_model), generator=gen)
+    grads_of = make_grads_fn(cfg, TrainConfig(num_microbatches=2))
+    want_loss, want = grads_of(params, batch)
+    before = [k.launches for k in _build.KERNELS]
+    loss, got = grads_of(
+        {k: v.detach().to(cuda).requires_grad_(True)
+         for k, v in params.items()},
+        {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launched = sum(k.launches - b for k, b in zip(_build.KERNELS, before))
+    assert launched > 0
+    torch.testing.assert_close(loss.cpu(), want_loss, atol=1e-4, rtol=1e-4)
+    for name, w in want.items():
+        torch.testing.assert_close(
+            got[name].cpu(), w, rtol=1e-4,
+            atol=1e-4 * max(float(w.abs().max()), 1e-6), msg=name)
+
+
+GRAD_FLASH_CASES = [
+    # B, Sq, Sk, H, KH, hd, causal, window
+    (2, 128, 128, 4, 4, 8, True, None),         # hd 8
+    (1, 200, 200, 8, 2, 16, True, 64),          # windowed, GQA 4
+    (1, 96, 160, 4, 1, 64, False, None),        # cross-attention, GQA 4
+    (1, 64, 64, 2, 2, 32, True, None),
+    (2, 256, 256, 8, 2, 128, True, None),       # GQA 4, hd 128
+]
+
+
+def _within_bf16_noise(got, plain16, plain32, name):
+    """A bf16 gradient against the plain path's: within twice the plain
+    bf16 gradient's own distance from float32 (two bf16 evaluations each
+    that far from float32 lie within twice it of each other)."""
+    noise = float((plain16.float() - plain32).abs().max())
+    err = float((got.float() - plain16.float()).abs().max())
+    assert err <= 2 * noise, f"{name}: {err} > 2 x {noise}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GRAD_FLASH_CASES)
+def test_flash_kernel_carries_gradients(cuda, dtype, case):
+    """With grad mode on, the kernel's output carries q, k and v's
+    gradients (the plain-torch backward; one launch, none in the backward)
+    and they equal autograd through the plain version: 1e-4 of the largest
+    entry in float32; in bf16 within the plain bf16 path's noise. Without
+    grad mode the output has no graph."""
+    b, sq, sk, h, kh, hd, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(hd)
+
+    def leaves(dt):
+        return [t.to(dt).requires_grad_(True) for t in rnd]
+    rnd = [torch.randn((b, s, n, hd), generator=g, device=cuda)
+           for s, n in ((sq, h), (sk, kh), (sk, kh))]
+    dout = torch.randn((b, sq, h, hd), generator=g, device=cuda)
+    kw = dict(causal=causal, window=window)
+    inputs = leaves(dtype)
+    before = _build.FLASH_ATTENTION.launches
+    out = flash_attention(*inputs, **kw)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, inputs, dout.to(dtype))
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches == before + 1
+    plain_in = leaves(dtype)
+    want = torch.autograd.grad(flash_attention_plain(*plain_in, **kw),
+                               plain_in, dout.to(dtype))
+    for name, gt, wt, t in zip("qkv", got, want, inputs):
+        assert gt.dtype == t.dtype and gt.shape == t.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(
+                gt, wt, rtol=1e-4, atol=1e-4 * float(wt.abs().max()))
+    if dtype == torch.bfloat16:
+        in32 = leaves(torch.float32)
+        want32 = torch.autograd.grad(flash_attention_plain(*in32, **kw),
+                                     in32, dout)
+        for name, gt, wt, w32 in zip("qkv", got, want, want32):
+            _within_bf16_noise(gt, wt, w32, name)
+    with torch.no_grad():
+        assert flash_attention(*inputs, **kw).grad_fn is None
+
+
+GRAD_SCAN_CASES = [
+    # B, S, H, dk, dv, chunk, mode, per-channel decay, bonus, initial state
+    (2, 128, 4, 64, 64, 16, "rwkv", True, True, True),     # rwkv6, chunk 16
+    (2, 256, 8, 64, 64, 128, "ssm", False, False, True),   # zamba2, chunk 128
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GRAD_SCAN_CASES)
+def test_linear_scan_kernel_carries_gradients(cuda, dtype, case):
+    """y and the final state carry the gradients of q, k, v, the decay (a
+    (B, S, H, 1) decay's summed back to its shape), the bonus and the
+    initial state; q and k of the ssm case are one (B, S, 1, dk) tensor
+    broadcast over the heads, as Mamba-2 hands them over. Equal to
+    autograd through the plain version (1e-4 of the largest entry in
+    float32; in bf16 within the plain bf16 path's noise), one launch."""
+    b, s, h, dk, dv, chunk, mode, per_channel, bonus, init = case
+    g = torch.Generator(device=cuda).manual_seed(chunk)
+    qk_heads = h if mode == "rwkv" else 1
+    base = [torch.randn((b, s, qk_heads, dk), generator=g, device=cuda) * 0.5
+            for _ in range(2)]
+    base.append(torch.randn((b, s, h, dv), generator=g, device=cuda))
+    raw = torch.randn((b, s, h, dk if per_channel else 1), generator=g,
+                      device=cuda)
+    # rwkv6's decay; at chunk 128 zamba2's, -softplus(A_log) dt with its
+    # dt_bias of -2 (a decay as strong as rwkv's overflows the chunk's
+    # exp(-la) factor in the backward, as in the reference's chunked path)
+    base.append(-torch.exp(raw - 1.0) if mode == "rwkv" else
+                -torch.nn.functional.softplus(raw - 2.0) * 0.6931)
+    base.append(torch.randn((h, dk), generator=g, device=cuda) * 0.3
+                if bonus else None)
+    base.append(torch.randn((b, h, dk, dv), generator=g, device=cuda)
+                if init else None)
+    dy = torch.randn((b, s, h, dv), generator=g, device=cuda)
+    dstate = torch.randn((b, h, dk, dv), generator=g, device=cuda)
+
+    def run(fn, dt):
+        leaves = [None if t is None else
+                  (t.to(dt) if i < 3 else t).requires_grad_(True)
+                  for i, t in enumerate(base)]
+        q, k = (t.expand(b, s, h, dk) for t in leaves[:2])
+        y, st = fn(q, k, leaves[2], leaves[3], bonus=leaves[4],
+                   initial_state=leaves[5], chunk=chunk, mode=mode)
+        wrt = [t for t in leaves if t is not None]
+        return y, wrt, torch.autograd.grad((y, st), wrt, (dy, dstate))
+    before = _build.LINEAR_SCAN.launches
+    y, wrt, got = run(linear_scan, dtype)
+    torch.cuda.synchronize()
+    assert y.grad_fn is not None
+    assert _build.LINEAR_SCAN.launches == before + 1
+    _, _, want = run(linear_scan_plain, dtype)
+    for gt, wt, t in zip(got, want, wrt):
+        assert gt.dtype == t.dtype and gt.shape == t.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(
+                gt, wt, rtol=1e-4, atol=1e-4 * float(wt.abs().max()))
+    if dtype == torch.bfloat16:
+        _, _, want32 = run(linear_scan_plain, torch.float32)
+        for i, (gt, wt, w32) in enumerate(zip(got, want, want32)):
+            _within_bf16_noise(gt, wt, w32, f"input {i}")
 
 
 def test_kernels_count_their_launches(cuda):
