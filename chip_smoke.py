@@ -158,6 +158,32 @@ package ``repro``. Phases, each printing lines before the last:
      memory, launches in the forward and in the backward against the
      config's count, and one more step profiled: its busy time split into
      the forward, the backward (remat recompute included) and the rest;
+ 10b/10c. distributed training and the pod pipeline, over a world-size-1
+     NCCL mesh (pod, data, model) = (1, 1, 1): (a) zamba2-1.2b whole at
+     phase 10a's shape, weights and batches with the 8-bit compressed
+     cross-pod exchange, error feedback and ``multi_pod=True``, 3 steps:
+     step 1's loss bit-equal to phase 10a's uncompressed step 1, step 1's
+     exchanged gradients and residuals bit-identical to the plain-torch
+     formula on the same gradients, ms a step, the exchange's ms (CUDA
+     events), peak memory, flash and scan launches a step; (c) qwen2-7b at
+     full width, phase 8's 512-token prompt fed token by token and its 16
+     greedy steps' tokens under ``flash_decode_ctx``, each step's bf16
+     logits against phase 8's unsharded decode within 2x the plain path's
+     distance from float32; (d) qwen2-7b's hidden stream after 14 of its
+     layers, (2, 4096, 3584) bf16, through ``compressed_pod_transfer`` at 8
+     and 4 bits (codes and side info of the kernel, of ``quantize_plain``
+     and of the CPU bit-identical, the bytes handed to ppermute exactly
+     ``wire_bytes()``, one quantize launch) and ``subset_pod_transfer`` of
+     896 channels with a stream BaF predictor of width 512 and layer 14 as
+     the receiving block (quantize, consolidate and flash once each, the
+     output the plain consolidate's on the same estimate bit for bit, in
+     float32 within 1e-3 of the CPU's largest entry); then two gloo ranks
+     sharing the card: (b) qwen2-7b's smoke config in float32 with the
+     compressed exchange for 3 steps, the ranks' exchanged gradients and
+     weights bit-identical after each step, the losses against the same
+     two ranks on the CPU (1e-4 relative at step 1, 1e-3 after), and (c)
+     the sequence-sharded decode at (B, H, K, hd) = (2, 28, 4, 128) over
+     32,768 slots, half a rank, against the unsharded decode at 1e-5;
  11. times: each kernel's device time and device operations per call at
      its path's shapes (torch.profiler) beside its bound, its plain version
      and, where one PyTorch call computes the same function, that call; the
@@ -173,7 +199,11 @@ package ``repro``. Phases, each printing lines before the last:
      dtypes (``flash_attention/hd8_f32``, ``hd8_bf16``), and flash and the
      scan at the training runs' shapes (``*/train_<arch>``, their launches
      a training step, forward and recompute) with their plain-torch
-     backward's time (``backward_ms``).
+     backward's time (``backward_ms``), and in the compressed step
+     (``*/train_zamba2_1p2b_compressed``); quantize at the pod boundary's
+     (1, 8192, 3584) with all channels and with 896
+     (``quantize/pod_stream``, ``quantize/pod_subset``), consolidate at the
+     subset's shape (``consolidate/pod_subset``).
 
 Then one JSON line with every kernel's numbers, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any failed
@@ -184,6 +214,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2261,7 +2292,8 @@ def _serve_prompt(dev, cfg, model, batch, feed) -> dict:
     cache filled by ``feed`` token by token and GEN greedy decode steps;
     launches, shapes and finiteness checked, greedy tokens, times and the
     top kernels printed -> dict(logits, last (the cache fill's last
-    logits), launches, times)."""
+    logits), steps (``last`` and each decode step's logits), tokens (the
+    token each decode step was fed), launches, times)."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.models.lm import init_decode_cache
@@ -2285,11 +2317,13 @@ def _serve_prompt(dev, cfg, model, batch, feed) -> dict:
     last, t_fill = _timed(dev, fill)
     tok = _argmax_tokens(logits[:, -1])
     generated = [tok]
+    steps = [last]
 
     def decode():
         nonlocal cache, tok
         for _ in range(GEN):
             lt, cache = step(model, cache, tok)
+            steps.append(lt)
             tok = _argmax_tokens(lt)
             generated.append(tok)
         return lt
@@ -2324,7 +2358,8 @@ def _serve_prompt(dev, cfg, model, batch, feed) -> dict:
     profile_top(dev, f"{name} decode step", lambda: step(model, cache, tok))
     del cache
     torch.cuda.empty_cache()
-    return dict(logits=logits, last=last, launches=launches, times=times)
+    return dict(logits=logits, last=last, steps=steps, tokens=generated[:GEN],
+                launches=launches, times=times)
 
 
 def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
@@ -2383,7 +2418,8 @@ def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
          last, logits[:, -1])], spread=bf16_spread)
     del logits32, plain32, logits, plain
     torch.cuda.empty_cache()
-    return dict(launches=run["launches"], times=run["times"], checks=checks)
+    return dict(launches=run["launches"], times=run["times"], checks=checks,
+                noise=noise, steps=run["steps"], tokens=run["tokens"])
 
 
 def rwkv_path(dev) -> dict:
@@ -3527,18 +3563,21 @@ def train_full_width(dev, arch, n_layers, b, s, seed, token_seed) -> dict:
                      lambda: step(state, batches[LM_TRAIN_STEPS]))
     del state, step, params
     torch.cuda.empty_cache()
-    return dict(launches={k: fwd[k] + bwd[k] for k in fwd}, by_call=by_call)
+    return dict(launches={k: fwd[k] + bwd[k] for k in fwd}, by_call=by_call,
+                loss1=losses[0])
 
 
-def training_path(dev, errs: dict) -> dict:
-    """Phase 10a -> the launches of each training row of the JSON line: a
+def training_path(dev, errs: dict) -> tuple[dict, dict]:
+    """Phase 10a -> (the launches of each training row of the JSON line: a
     step's (forward and recompute) launches of flash and the scan at the
-    full-width runs' shapes."""
+    full-width runs' shapes; each full-width arch's step-1 loss)."""
     import torch
     train_kernel_grads(dev, errs)
     launches = train_smoke_card_vs_cpu(dev)
+    loss1 = {}
     for arch, n_layers, b, s, seed, token_seed in TRAIN_FULL:
         res = train_full_width(dev, arch, n_layers, b, s, seed, token_seed)
+        loss1[arch] = res["loss1"]
         if arch == "whisper_tiny":
             for label, key in (("encoder", (False, WHISPER_FRAMES,
                                             WHISPER_FRAMES)),
@@ -3550,7 +3589,557 @@ def training_path(dev, errs: dict) -> dict:
             for k, v in res["launches"].items():
                 launches[f"{k}/train_{arch}"] = v
         torch.cuda.empty_cache()
-    return launches
+    return launches, loss1
+
+
+# ---------------------------------------------------------------------------
+# Phase 10b/10c: distributed training and the pod pipeline
+# ---------------------------------------------------------------------------
+
+# qwen2-7b's hidden stream at a stage boundary: B=2 x POD_S tokens through
+# layers 0..POD_LAYER-1 (bf16), sent to the pod that runs layer POD_LAYER;
+# the subset transfer sends POD_C of the 3584 channels, restored by a
+# stream BaF predictor of hidden width POD_HIDDEN.
+POD_S, POD_LAYER, POD_C, POD_HIDDEN = 4096, 14, 896, 512
+# the subset transfer in float32, card against CPU: 1e-3 of the largest
+# entry (a decoder block's float32 sums in another order)
+POD_CPU_RTOL = 1e-3
+# the flash-decode at full width (world size 1): bf16 logits within
+# FLASH_DECODE_SPREAD x the plain bf16 prefill's distance from float32
+FLASH_DECODE_SPREAD = 2.0
+# two gloo ranks sharing the card: qwen2-7b's smoke config in float32,
+# GLOO_STEPS steps on a global batch of GLOO_B x GLOO_S; step 1's loss
+# within 1e-4 relative of the same run on the CPU, steps 2-3 within 1e-3
+# (a gradient code can flip between the devices, which Adam makes a whole
+# step); the sequence-sharded decode at the layer level at qwen2-7b's
+# heads (B, H, K, hd) over a cache of DECODE_S slots, half a rank, at
+# 1e-5 of the largest entry in float32
+GLOO_STEPS, GLOO_B, GLOO_S = 3, 8, 64
+GLOO_STEP1_RTOL, GLOO_LATER_RTOL = 1e-4, 1e-3
+DECODE_HEADS, DECODE_S = (2, 28, 4, 128), 32768
+DECODE_RTOL = 1e-5
+GLOO_TIMEOUT_S = 300
+
+
+def _plain_exchange(g, bits: int):
+    """The compressed mean at one pod in plain torch: (mean, residual)."""
+    import torch
+    levels = (1 << (bits - 1)) - 1
+    one = lambda v: torch.full((), float(v), device=g.device)
+    amax = g.abs().amax().to(torch.float32)
+    scale = torch.maximum(amax, one(1e-30)) / one(levels)
+    codes = torch.clamp(torch.round(g.float() / scale), -levels, levels)
+    codes = codes.to(torch.int8)
+    mean = codes.to(torch.int32).to(torch.float32) * scale / one(1)
+    return mean.to(g.dtype), g.float() - codes.to(torch.float32) * scale
+
+
+@contextlib.contextmanager
+def observed_exchange(check_bits=None):
+    """``trainer.pod_exchange`` observed: yields a list that gets each
+    call's (start, end) CUDA events; with ``check_bits``, the first call's
+    means and residuals are held bit-identical to ``_plain_exchange`` on
+    its inputs (raises)."""
+    import torch
+    from repro_torch.train import trainer
+    real = trainer.pod_exchange
+    events = []
+
+    def exchange(grads, ef, bits, group, npod):
+        check = check_bits is not None and not events
+        if check:
+            given = {k: (g if ef is None else g + ef[k]).clone()
+                     for k, g in grads.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(grads, ef, bits, group, npod)
+        end.record()
+        events.append((start, end))
+        if check:
+            for k, g in given.items():
+                mean, resid = _plain_exchange(g, check_bits)
+                if not (torch.equal(mean, grads[k])
+                        and (ef is None or torch.equal(resid, ef[k]))):
+                    raise AssertionError(f"exchanged gradient {k} differs "
+                                         f"from the plain formula")
+            print(f"compressed step 1: {len(given)} exchanged gradients and "
+                  f"residuals bit-identical to the plain-torch formula on "
+                  f"the same gradients")
+            del given
+    trainer.pod_exchange = exchange
+    try:
+        yield events
+    finally:
+        trainer.pod_exchange = real
+
+
+def compressed_training(dev, mesh, step1_loss: float) -> dict:
+    """(a) zamba2-1.2b whole at phase 10a's shape and weights, 8-bit
+    compressed exchange with error feedback, multi_pod over the world-1
+    NCCL mesh: step 1's loss bit-equal to phase 10a's uncompressed step 1,
+    the exchange of step 1 bit-identical to the plain formula; ms a step,
+    the exchange's ms (CUDA events), peak, launches a step -> the launches
+    of flash and the scan in a step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.train import trainer as tr
+
+    arch, _, b, s, seed, token_seed = TRAIN_FULL[0]
+    cfg = get_config(arch)
+    name = cfg.name
+    params = tr.init_params(cfg, seed=seed, device=dev)
+    tcfg = tr.TrainConfig(num_microbatches=TRAIN_MB, peak_lr=TRAIN_PEAK_LR,
+                          warmup_steps=TRAIN_WARMUP,
+                          total_steps=LM_TRAIN_STEPS, grad_compress_bits=8,
+                          error_feedback=True)
+    gen = torch.Generator(device=dev).manual_seed(token_seed)
+    batches = [_train_batch(cfg, b, s, gen, dev)
+               for _ in range(LM_TRAIN_STEPS + 1)]
+    state = tr.init_train_state(params, tcfg)
+    step = tr.make_train_step(cfg, tcfg, mesh=mesh, multi_pod=True)
+    want = {k: 2 * TRAIN_MB * v for k, v in _expected_launches(cfg).items()}
+    times, losses, ex_ms = [], [], []
+    with observed_exchange(check_bits=8) as events:
+        for i in range(LM_TRAIN_STEPS):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+            with phase_counts() as tally:
+                (state, m), t = _timed(dev, lambda: step(state, batches[i]))
+            times.append(t)
+            losses.append(float(m["loss"]))
+            ex_ms.append(events[-1][0].elapsed_time(events[-1][1]))
+            got = {k: tally["forward"].get(k, 0) + tally["backward"].get(k, 0)
+                   for k in want}
+            print(f"{name} compressed step {i + 1}: loss {losses[-1]!r}, "
+                  f"grad norm {float(m['grad_norm'])!r}, {t * 1e3!r} ms "
+                  f"(host clock, synchronised), exchange {ex_ms[-1]!r} ms "
+                  f"(CUDA events); launches {got}")
+            if got != want:
+                raise AssertionError(f"{name} compressed step launched "
+                                     f"{got}, the config implies {want}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if losses[0] != step1_loss:
+        raise AssertionError(f"{name}: compressed step 1 loss {losses[0]!r} "
+                             f"is not phase 10a's {step1_loss!r}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: a compressed training loss is not "
+                             f"finite")
+    ef_norm = float(sum(float(v.float().square().sum())
+                        for v in state.ef.values())) ** 0.5
+    steady = sum(times[1:]) / (len(times) - 1)
+    ex = sum(ex_ms[1:]) / (len(ex_ms) - 1)
+    print(f"{name} compressed training ({nvidia_smi_line()}): multi_pod over "
+          f"a world-1 NCCL mesh, 8-bit codes, error feedback; "
+          f"{steady * 1e3!r} ms a step (steps 2-{LM_TRAIN_STEPS}; step 1 "
+          f"{times[0] * 1e3!r} ms), the exchange {ex!r} ms a step "
+          f"({ex / (steady * 1e3)!r} of it), peak memory {peak!r} GB over "
+          f"steps 2-{LM_TRAIN_STEPS}; losses {losses!r}, step 1 bit-equal to "
+          f"phase 10a's {step1_loss!r}; residual norm {ef_norm!r}")
+    del state, step, params, batches
+    torch.cuda.empty_cache()
+    return want
+
+
+def flash_decode_path(dev, mesh, model, cfg, qwen: dict) -> None:
+    """(c) qwen2-7b at full width, world size 1: phase 8's QWEN_PROMPT-token
+    prompt fed token by token and its GEN greedy steps' tokens, under
+    ``flash_decode_ctx``; every step's bf16 logits held against phase 8's
+    unsharded decode on the same weights and tokens, within
+    FLASH_DECODE_SPREAD x the plain path's distance from float32."""
+    import torch
+    from repro_torch.distributed import flash_decode_ctx
+    from repro_torch.models.lm import init_decode_cache, lm_decode_step
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    tokens = torch.randint(0, cfg.vocab, (QWEN_B, QWEN_PROMPT),
+                           generator=gen, device=dev)
+
+    def run():
+        cache = init_decode_cache(cfg, QWEN_B, QWEN_PROMPT + GEN, device=dev)
+        for t in range(QWEN_PROMPT):
+            lt, cache = lm_decode_step(model, cache, tokens[:, t])
+        out = [lt]
+        for tok in qwen["tokens"]:
+            lt, cache = lm_decode_step(model, cache, tok)
+            out.append(lt)
+        return out, cache.kv[0].k.shape[1]
+    with flash_decode_ctx(mesh, axis="model"):
+        (got, slots), t_sharded = _timed(dev, run)
+    steps = QWEN_PROMPT + GEN
+    print(f"{cfg.name} flash-decode ({nvidia_smi_line()}): world size 1 over "
+          f"NCCL, {slots} cache slots a rank; {t_sharded * 1e3 / steps!r} ms "
+          f"a step ({steps} steps of {QWEN_B} tokens, host clock); phase 8 "
+          f"unsharded: cache fill {qwen['times']['cache_fill_ms_per_token']!r}"
+          f" ms, decode {qwen['times']['decode_ms_per_token']!r} ms a step")
+    tol = FLASH_DECODE_SPREAD * qwen["noise"]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, qwen["steps"])):
+        worst = max(worst, _logit_check(
+            f"{cfg.name} flash-decode step {i} (0: the prompt's last)", a, b,
+            tol, f"{FLASH_DECODE_SPREAD} x the plain bf16 path's distance "
+            f"from float32"))
+    print(f"{cfg.name} flash-decode: worst step {worst!r} of tolerance "
+          f"{tol!r}")
+
+
+def _stage_stream(dev, model, cfg):
+    """qwen2-7b's hidden stream after layers 0..POD_LAYER-1 on B=QWEN_B x
+    POD_S seeded tokens (bf16)."""
+    import torch
+    from repro_torch.models.lm import _attn_ffn_block
+    gen = torch.Generator(device=dev).manual_seed(23)
+    tokens = torch.randint(0, cfg.vocab, (QWEN_B, POD_S), generator=gen,
+                           device=dev)
+    x = model.embed[tokens].to(cfg.dtype)
+    for lp in model.layers[:POD_LAYER]:
+        x = _attn_ffn_block(lp, x, cfg, dtype=cfg.dtype)[0]
+    return x
+
+
+def pod_boundary_path(dev, mesh, model, cfg) -> dict:
+    """(d) qwen2-7b's stream at a stage boundary over the world-1 NCCL
+    mesh: ``compressed_pod_transfer`` at 8 and 4 bits (codes and side info
+    of the kernel, of ``quantize_plain`` on the card and of the CPU
+    bit-identical; the bytes handed to ppermute exactly ``wire_bytes()``;
+    one quantize launch a transfer), ``subset_pod_transfer`` of POD_C
+    channels with a stream BaF predictor and layer POD_LAYER as the frozen
+    receiving block (one quantize, one consolidate and one flash launch;
+    the output bit-identical to the plain consolidate on the same
+    estimate; in float32 against the CPU) -> the stream and selection for
+    the kernel rows, and their launches and errors."""
+    import copy
+    import torch
+    from repro_torch.core.baf import BaFStream, BaFStreamConfig
+    from repro_torch.distributed import pipeline
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.consolidate import consolidate_plain
+    from repro_torch.kernels.quantize import quantize_plain
+    from repro_torch.models.lm import _attn_ffn_block
+
+    x = _stage_stream(dev, model, cfg)
+    b, s, d = x.shape
+    sent = []
+    real = pipeline.ppermute
+
+    def counted(t, perm, group):
+        sent[-1] += t.numel() * t.element_size()
+        return real(t, perm, group)
+    pipeline.ppermute = counted
+    launches, errs = {}, {}
+    try:
+        for bits in (8, 4):
+            codes, mn, mx = pipeline._quantize_stream(x, bits)
+            x3 = x.reshape(1, -1, d).float()
+            pc, pmn, pmx = quantize_plain(x3, bits)
+            cc, cmn, cmx = pipeline._quantize_stream(x.cpu(), bits)
+            same = (bits_equal(codes.reshape(pc.shape), pc)
+                    and bits_equal(mn, pmn[0]) and bits_equal(mx, pmx[0])
+                    and bits_equal(codes.cpu(), cc) and
+                    bits_equal(mn.cpu(), cmn) and bits_equal(mx.cpu(), cmx))
+            sent.append(0)
+            _build.reset_launches()
+            y = pipeline.compressed_pod_transfer(x, mesh, bits=bits,
+                                                 dtype=torch.bfloat16)
+            counts = launch_counts()
+            want = pipeline._dequantize_stream(codes, mn, mx, bits,
+                                               torch.bfloat16)
+            comp, raw = pipeline.wire_bytes(x, bits)
+            err = float((y.float() - x.float()).abs().max())
+            print(f"pod transfer n={bits} ({nvidia_smi_line()}): x {(b, s, d)}"
+                  f" bf16; codes and side info kernel = plain on the card = "
+                  f"CPU: {same}; wire {sent[-1]} B (wire_bytes {comp}) vs bf16"
+                  f" {raw} B ({raw / comp!r}x less); max dequantization error"
+                  f" {err!r}; launches {counts}")
+            if not (same and sent[-1] == comp and torch.equal(y, want)
+                    and counts["quantize"] == 1):
+                raise AssertionError(f"pod transfer n={bits} failed its "
+                                     f"checks")
+            if bits == 8:
+                launches["quantize/pod_stream"] = counts["quantize"]
+                errs["quantize/pod_stream"] = 0.0
+
+        sel = torch.arange(0, d, d // POD_C, dtype=torch.int32, device=dev)
+        baf = BaFStream(BaFStreamConfig(c=POD_C, d_in=d, hidden=POD_HIDDEN),
+                        seed=24, device=dev)
+        block = model.layers[POD_LAYER]
+        seen = {}
+
+        def forward_fn(t):
+            seen["z"] = _attn_ffn_block(block, t, cfg, dtype=cfg.dtype)[0]
+            return seen["z"]
+        sent.append(0)
+        _build.reset_launches()
+        (y, t_subset) = _timed(dev, lambda: pipeline.subset_pod_transfer(
+            x, mesh, sel_idx=sel, baf=baf, forward_fn=forward_fn, bits=8))
+        counts = launch_counts()
+        codes, mn, mx = pipeline._quantize_stream(x, 8, sel)
+        z32 = seen["z"].reshape(1, -1, d).float()
+        consolidate_plain(z32, codes.reshape(1, -1, POD_C), mn[None],
+                          mx[None], 8, sel.long())
+        plain = z32.reshape(x.shape).to(torch.bfloat16)
+        comp, _ = pipeline.wire_bytes(x[..., :POD_C], 8)
+        print(f"pod subset transfer ({nvidia_smi_line()}): C={POD_C} of {d},"
+              f" BaF hidden {POD_HIDDEN}, frozen block qwen2-7b layer "
+              f"{POD_LAYER}; {t_subset * 1e3!r} ms (host clock); wire "
+              f"{sent[-1]} B (wire_bytes {comp}), {x.numel() * 2 / comp!r}x "
+              f"less than bf16; launches {counts}; output = the plain "
+              f"consolidate on the same estimate: {torch.equal(y, plain)}")
+        if not (torch.equal(y, plain) and sent[-1] == comp
+                and counts["quantize"] == 1 and counts["consolidate"] == 1
+                and counts["flash_attention"] == 1 and torch_isfinite(y)):
+            raise AssertionError("pod subset transfer failed its checks")
+        launches["quantize/pod_subset"] = counts["quantize"]
+        launches["consolidate/pod_subset"] = counts["consolidate"]
+        errs["quantize/pod_subset"] = 0.0
+        errs["consolidate/pod_subset"] = 0.0
+        del seen["z"], z32, plain
+
+        # float32, card against CPU
+        cfg32 = cfg.with_(dtype=torch.float32)
+        block32 = copy.deepcopy(block).float()
+        x32 = x.float()
+        card = pipeline.subset_pod_transfer(
+            x32, mesh, sel_idx=sel, baf=baf, dtype=torch.float32,
+            forward_fn=lambda t: _attn_ffn_block(block32, t, cfg32,
+                                                 dtype=torch.float32)[0])
+        block_cpu = copy.deepcopy(block32).cpu()
+        baf_cpu = copy.deepcopy(baf).cpu()
+        cpu = pipeline.subset_pod_transfer(
+            x32.cpu(), mesh, sel_idx=sel.cpu(), baf=baf_cpu,
+            dtype=torch.float32,
+            forward_fn=lambda t: _attn_ffn_block(block_cpu, t, cfg32,
+                                                 dtype=torch.float32)[0])
+        gap = float((card.cpu() - cpu).abs().max())
+        scale = float(cpu.abs().max())
+        print(f"pod subset transfer in float32, card vs CPU: max abs diff "
+              f"{gap!r}, largest entry {scale!r} (tolerance {POD_CPU_RTOL} "
+              f"of it)")
+        if not gap <= POD_CPU_RTOL * scale:
+            raise AssertionError("pod subset transfer: card and CPU differ")
+    finally:
+        pipeline.ppermute = real
+    return dict(x=x, sel=sel, launches=launches, errs=errs)
+
+
+def _gloo_rank(rank: int, init_file: str, out: str) -> None:
+    """One of two gloo ranks sharing cuda:0: (b) the multi-pod step on
+    qwen2-7b's smoke config on the card and then on the CPU, the weights
+    and exchanged gradients of the two ranks held bit-identical after each
+    step; (c) the sequence-sharded decode at the layer level against the
+    unsharded decode attention. Rank 0 writes what it saw to ``out``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.distributed.collectives import \
+        seq_sharded_decode_attention
+    from repro_torch.train import trainer as tr
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(4)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank, world_size=2,
+        timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+    from torch.distributed.device_mesh import init_device_mesh
+    # the mesh's device type matters only to DTensors: the pods' tensors
+    # are on cuda:0, and then on the CPU, through the same gloo groups
+    mesh = init_device_mesh("cpu", (2, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    seq_mesh = init_device_mesh("cpu", (1, 1, 2),
+                                mesh_dim_names=("pod", "data", "model"))
+    group = mesh.get_group("pod")
+    report = {}
+    try:
+        cfg = configs.get_smoke_config("qwen2_7b").with_(dtype=torch.float32)
+        tcfg = tr.TrainConfig(num_microbatches=2, grad_compress_bits=8,
+                              peak_lr=1e-2, warmup_steps=0, total_steps=10)
+        master = tr.init_params(cfg, seed=0, device="cpu")
+        rng = np.random.default_rng(5)
+        tokens = rng.integers(0, cfg.vocab, (GLOO_STEPS, GLOO_B, GLOO_S + 1))
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            params = {k: v.detach().to(dev).requires_grad_(True)
+                      for k, v in master.items()}
+            state = tr.init_train_state(params, tcfg)
+            step = tr.make_train_step(cfg, tcfg, mesh=mesh, multi_pod=True)
+            losses[dev] = []
+            seen = {}
+            real = tr.pod_exchange
+
+            def exchange(grads, ef, bits, grp, npod):
+                real(grads, ef, bits, grp, npod)
+                seen["grads"] = {k: g.clone() for k, g in grads.items()}
+            tr.pod_exchange = exchange
+            try:
+                for i in range(GLOO_STEPS):
+                    t = torch.from_numpy(tokens[i]).to(dev)
+                    state, m = step(state, {"tokens": t[:, :-1],
+                                            "labels": t[:, 1:]})
+                    losses[dev].append(float(m["loss"]))
+                    for what, tree in (("gradient", seen["grads"]),
+                                       ("weight", state.params)):
+                        for k, v in tree.items():
+                            both = [torch.empty_like(v) for _ in range(2)]
+                            dist.all_gather(both, v.detach().contiguous(),
+                                            group=group)
+                            if not torch.equal(both[0], both[1]):
+                                raise AssertionError(
+                                    f"{dev} step {i + 1}: the ranks' "
+                                    f"{what} {k} differ")
+            finally:
+                tr.pod_exchange = real
+        report["losses"] = losses
+        report["leaves"] = len(master)
+
+        # (c) the layer-level sequence-sharded decode, float32 on the card
+        b, h, kh, hd = DECODE_HEADS
+        s_loc = DECODE_S // 2
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        ck = torch.randn((b, DECODE_S, kh, hd), generator=gen, device="cuda")
+        cv = torch.randn((b, DECODE_S, kh, hd), generator=gen, device="cuda")
+        worst = 0.0
+        lengths = (100, s_loc - 1, s_loc, s_loc + 1, DECODE_S - 1)
+        for length in lengths:
+            q = torch.randn((b, h, hd), generator=gen, device="cuda")
+            nk = torch.randn((b, kh, hd), generator=gen, device="cuda")
+            nv = torch.randn((b, kh, hd), generator=gen, device="cuda")
+            lk = ck[:, rank * s_loc:(rank + 1) * s_loc].clone()
+            lv = cv[:, rank * s_loc:(rank + 1) * s_loc].clone()
+            got, lk, lv = seq_sharded_decode_attention(
+                q, lk, lv, nk, nv, length, seq_mesh, axis="model")
+            fk, fv = ck.clone(), cv.clone()
+            fk[:, length], fv[:, length] = nk, nv
+            qg = q.reshape(b, kh, h // kh, hd)
+            p = torch.softmax(torch.einsum(
+                "bkgh,bskh->bkgs", qg, fk[:, :length + 1]) / hd ** 0.5, -1)
+            want = torch.einsum("bkgs,bskh->bkgh", p,
+                                fv[:, :length + 1]).reshape(b, h * hd)
+            gap = float((got - want).abs().max())
+            worst = max(worst, gap / float(want.abs().max()))
+            if not (gap <= DECODE_RTOL * float(want.abs().max())
+                    and torch.equal(lk, fk[:, rank * s_loc:(rank + 1)
+                                           * s_loc])):
+                raise AssertionError(f"sharded decode at length {length}: "
+                                     f"{gap!r} from the unsharded decode")
+        report["decode"] = dict(lengths=lengths, worst=worst)
+        if rank == 0:
+            Path(out).write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_pair(dev) -> None:
+    """(b) and (c) with two gloo ranks sharing the card (NCCL refuses two
+    ranks on one device; gloo takes all_reduce and all_gather of CUDA
+    tensors, and no send or recv): the gates checked here on rank 0's
+    report, a rank's failure fails the phase."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "report.json")
+        t0 = time.perf_counter()
+        mp.spawn(_gloo_rank, args=(os.path.join(tmp, "rendezvous"), out),
+                 nprocs=2)
+        wall = time.perf_counter() - t0
+        rep = json.loads(Path(out).read_text())
+    card, cpu = rep["losses"]["cuda"], rep["losses"]["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    print(f"two gloo ranks on {torch.cuda.get_device_name(0)} "
+          f"({nvidia_smi_line()}), {wall!r} s with process start: qwen2-7b "
+          f"smoke float32, 8-bit exchange, {GLOO_STEPS} steps of B="
+          f"{GLOO_B} x {GLOO_S}; losses card {card!r}, CPU {cpu!r}, "
+          f"relative gaps {rel!r} (tolerance {GLOO_STEP1_RTOL} at step 1, "
+          f"{GLOO_LATER_RTOL} after); the ranks' {rep['leaves']} exchanged "
+          f"gradients and weights bit-identical after each step")
+    if not (rel[0] <= GLOO_STEP1_RTOL
+            and all(r <= GLOO_LATER_RTOL for r in rel[1:])):
+        raise AssertionError("two gloo ranks: the card's losses are not the "
+                             "CPU's")
+    dec = rep["decode"]
+    print(f"sequence-sharded decode, two gloo ranks on the card: (B, H, K, "
+          f"hd) {DECODE_HEADS}, {DECODE_S} slots, {DECODE_S // 2} a rank, "
+          f"lengths {dec['lengths']}: worst {dec['worst']!r} of the largest "
+          f"entry from the unsharded decode (tolerance {DECODE_RTOL})")
+
+
+def distributed_path(dev, step1_loss: float, qwen: dict) -> dict:
+    """Phase 10b/10c (``qwen``: phase 8's qwen2-7b run) -> the launches and
+    errors of its kernel rows and what ``time_pod_kernels`` times."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import init_mesh
+    from repro_torch.models.lm import init_lm
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = init_mesh((1, 1, 1), backend="nccl", rank=0, world=1,
+                         init_file=os.path.join(tmp, "rendezvous"),
+                         device_type="cuda")
+        try:
+            launches = compressed_training(dev, mesh, step1_loss)
+            cfg = get_config("qwen2_7b")
+            with torch.no_grad():
+                model = init_lm(cfg, seed=0, device=dev)
+                flash_decode_path(dev, mesh, model, cfg, qwen)
+                pod = pod_boundary_path(dev, mesh, model, cfg)
+            del model
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    gloo_pair(dev)
+    for k, v in launches.items():
+        pod["launches"][f"{k}/train_zamba2_1p2b_compressed"] = v
+    print(f"phase 10b/10c: {time.perf_counter() - t0!r} s")
+    return pod
+
+
+def time_pod_kernels(row, pod) -> list:
+    """quantize at the stream's (1, B*S, D) with all D channels and with
+    the subset's C, consolidate at the subset's shape."""
+    import torch
+    from repro_torch.kernels.consolidate import (consolidate_fused,
+                                                 consolidate_plain)
+    from repro_torch.kernels.quantize import (channel_order, quantize_fused,
+                                              quantize_plain)
+    x, sel = pod["x"], pod["sel"]
+    d = x.shape[-1]
+    x3 = x.reshape(1, -1, d).float()
+    r = x3.shape[1]
+    c = sel.numel()
+    order = channel_order(sel)
+    out = []
+    for name, s_, cc in (("quantize/pod_stream", None, d),
+                         ("quantize/pod_subset", sel, c)):
+        kw = {} if s_ is None else {"order": order}
+        # the channels coded read once, codes and side info written once
+        nbytes = r * cc * 4 + r * cc + 2 * cc * 2 + (0 if s_ is None
+                                                     else cc * 8)
+        out.append(row(name, "src/repro_torch/csrc/quantize.cu",
+                       "src/repro/kernels/quantize.py:48",
+                       timed(lambda: quantize_fused(x3, 8, s_, **kw)),
+                       timed(lambda: quantize_plain(
+                           x3, 8, None if s_ is None else s_.long())),
+                       nbytes, None, f"pod boundary B=1 R={r} P={d} C={cc}"))
+    codes, mins, maxs = quantize_fused(x3, 8, sel, order=order)
+    gen = torch.Generator(device=x3.device).manual_seed(26)
+    est = x3 + 0.01 * torch.randn(x3.shape, generator=gen, device=x3.device)
+    nbytes = 2 * r * c * 4 + r * c + 2 * c * 2 + c * 8
+    out.append(row("consolidate/pod_subset",
+                   "src/repro_torch/csrc/consolidate.cu",
+                   "src/repro/kernels/consolidate.py:37",
+                   timed(lambda: consolidate_fused(est, codes, mins, maxs, 8,
+                                                   sel, order=order)),
+                   timed(lambda: consolidate_plain(est, codes, mins, maxs, 8,
+                                                   sel.long())),
+                   nbytes, None, f"pod boundary B=1 R={r} P={d} C={c}"))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3564,7 +4153,7 @@ def timed(fn):
     return ms, event_ms(fn), ops
 
 
-def time_kernels(dev, errs: dict, launches: dict, path_codes) -> list:
+def time_kernels(dev, errs: dict, launches: dict, path_codes, pod) -> list:
     import torch
     from repro_torch.kernels.consolidate import (consolidate_fused,
                                                  consolidate_plain)
@@ -3669,6 +4258,14 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes) -> list:
                     f"{c8[3]} bytes of 32-byte sectors of z"))
     rows += time_cdf(dev, row, gen)
     rows += time_lm_kernels(dev, row, gen)
+    rows += time_pod_kernels(row, pod)
+    # the compressed step's launches of flash and the scan, at the training
+    # rows' shapes and times
+    for base in ("flash_attention/train_zamba2_1p2b",
+                 "linear_scan/train_zamba2_1p2b"):
+        name = base + "_compressed"
+        rows.append(dict(next(r for r in rows if r["name"] == base),
+                         name=name, launches=launches[name]))
     return rows
 
 
@@ -3955,8 +4552,12 @@ def main() -> int:
         launches.update(zoo_paths(dev))
         lms_card_vs_cpu(dev)
     errs["linear_scan/ingest_block"] = errs["linear_scan"]
-    launches.update(training_path(dev, errs))
-    rows = time_kernels(dev, errs, launches, res["path_codes"])
+    train_launches, loss1 = training_path(dev, errs)
+    launches.update(train_launches)
+    pod = distributed_path(dev, loss1["zamba2_1p2b"], qwen)
+    launches.update(pod["launches"])
+    errs.update(pod["errs"])
+    rows = time_kernels(dev, errs, launches, res["path_codes"], pod)
     print(f"total {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())

@@ -9,7 +9,8 @@ LM and encoder-decoder params keep the JAX (in, out) weight layout; their
 layers, stacked on a leading axis by the JAX package, go one slice to each
 layer module (MoE experts stay stacked within a layer), and each leaf is
 cast to the dtype its module stores it in; ``master_from_jax`` gives the
-trainer the same leaves as float32 tensors by parameter name. Task heads keep
+trainer the same leaves as float32 tensors by parameter name. The stream
+BaF predictor and the task heads keep
 the JAX param tree's names; their dense layers' ``w``/``b`` go to
 ``weight``/``bias``.
 """
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.baf import BaFConv, BaFConvConfig
+from repro_torch.core.baf import (BaFConv, BaFConvConfig, BaFStream,
+                                  BaFStreamConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import CNN, CNNConfig
 from repro_torch.models.encdec import EncDec
@@ -75,6 +77,18 @@ def baf_from_jax(params, cfg: BaFConvConfig, *, device=None) -> BaFConv:
         _load_conv(getattr(model, name), params[name])
     for name in ("up_act", "c2_act", "c3_act"):
         _copy(getattr(model, name).alpha, params[name]["alpha"])
+    return model
+
+
+def baf_stream_from_jax(params, cfg: BaFStreamConfig, *,
+                        device=None) -> BaFStream:
+    """JAX ``init_baf_stream`` params (numpy leaves) -> :class:`BaFStream`
+    (dense ``w``/``b`` into ``weight``/``bias``, PReLU ``alpha``)."""
+    model = BaFStream(cfg, device=device)
+    n = _load_tree(model, params)
+    if n != len(list(model.parameters())):
+        raise ValueError(f"{n} leaves for {len(list(model.parameters()))} "
+                         f"weights")
     return model
 
 

@@ -1,7 +1,10 @@
-"""Back-and-Forth (BaF) prediction, paper §3.3, Fig. 2, eq. (6), conv variant.
+"""Back-and-Forth (BaF) prediction, paper §3.3, Fig. 2, eq. (6): the conv
+variant and the stream variant.
 
-Counterpart of the conv half of ``repro/core/baf.py``, for inference and
-for training (quantization in the loop, ``train/baf_trainer.py``).
+Counterpart of ``repro/core/baf.py``. The conv variant serves inference
+and training (quantization in the loop, ``train/baf_trainer.py``); the
+stream variant restores a transformer's hidden stream on the receiving
+side of a pod boundary (``distributed/pipeline.py``).
 
 Backward: dequantized selected channels --inverse BN--> pre-BN values
           --4 conv layers (PReLU; the first a x2 transposed conv)-->
@@ -11,6 +14,10 @@ Forward:  the frozen split conv (stride 2) + BN --> estimate of all P
 Consolidation (eq. 6): on the C transmitted channels, clip the estimate
 to the bin of the received code. ``consolidate`` here is the plain torch
 form; the fused kernel is ``repro_torch/kernels/consolidate.py``.
+
+Stream variant: four dense layers (PReLU on the first three) from the C
+dequantized channels to the block's input, the frozen block, then
+consolidation through the kernel.
 """
 from __future__ import annotations
 
@@ -98,3 +105,89 @@ def baf_conv_predict(baf: BaFConv, split, sel_idx: torch.Tensor,
         cons = consolidate(z_tilde[..., sel_idx], codes, qp)
         z_tilde = scatter_consolidated(z_tilde, cons, sel_idx)
     return z_tilde
+
+
+# ---------------------------------------------------------------------------
+# Stream BaF predictor (transformer hidden streams at a pod boundary)
+# ---------------------------------------------------------------------------
+
+class BaFStreamConfig(NamedTuple):
+    c: int                      # transmitted channels of the D-dim stream
+    d_in: int                   # dim of the backward-prediction target
+    hidden: int = 512
+    dtype: torch.dtype = torch.float32
+
+
+class BaFStream(nn.Module):
+    """Backward predictor for (B, S, D) streams: c -> hidden (PReLU) ->
+    hidden (PReLU) -> hidden (PReLU) -> d_in, dense layers in the JAX
+    (in, out) layout, stored in ``cfg.dtype``. No upsampling: a stream
+    split is stride 1. The weights are drawn from ``seed`` on the CPU,
+    then moved to ``device`` (``None`` = the card)."""
+
+    def __init__(self, cfg: BaFStreamConfig, *, seed: int = 0, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        self.cfg = cfg
+        self.l1 = tnn.Dense(cfg.c, cfg.hidden, gen=gen)
+        self.a1 = tnn.PReLU(cfg.hidden)
+        self.l2 = tnn.Dense(cfg.hidden, cfg.hidden, gen=gen)
+        self.a2 = tnn.PReLU(cfg.hidden)
+        self.l3 = tnn.Dense(cfg.hidden, cfg.hidden, gen=gen)
+        self.a3 = tnn.PReLU(cfg.hidden)
+        self.l4 = tnn.Dense(cfg.hidden, cfg.d_in, gen=gen)
+        self.to(device=dev, dtype=cfg.dtype)
+
+
+def _dense(layer, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``nn.dense_apply`` of the reference: weights and input cast to
+    ``dtype`` when it is given, the bias to the product's dtype."""
+    w = layer.weight
+    dtype = dtype or torch.promote_types(x.dtype, w.dtype)
+    y = x.to(dtype) @ w.to(dtype)
+    return y + layer.bias.to(y.dtype)
+
+
+def _prelu(act, x: torch.Tensor) -> torch.Tensor:
+    return tnn.prelu_apply(act.alpha.to(x.dtype), x)
+
+
+def baf_stream_backward(baf: BaFStream, z_hat_sel: torch.Tensor, *,
+                        dtype=None) -> torch.Tensor:
+    """(..., C) dequantized transmitted channels -> (..., d_in)."""
+    x = _prelu(baf.a1, _dense(baf.l1, z_hat_sel, dtype))
+    x = _prelu(baf.a2, _dense(baf.l2, x, dtype))
+    x = _prelu(baf.a3, _dense(baf.l3, x, dtype))
+    return _dense(baf.l4, x, dtype)
+
+
+def baf_stream_predict(baf: BaFStream, forward_fn, sel_idx: torch.Tensor,
+                       z_hat_sel: torch.Tensor, *,
+                       codes: torch.Tensor | None = None,
+                       qp: QuantParams | None = None, dtype=None,
+                       order: torch.Tensor | None = None) -> torch.Tensor:
+    """Stream BaF: backward predictor -> the frozen block ``forward_fn``
+    (the sender's block at the boundary) -> consolidation (eq. 6) of the
+    transmitted channels when ``codes`` (..., C) are given, with ``qp``'s
+    (C,) side info.
+
+    Consolidation runs through ``consolidate_fused`` on a (1, B·S, D)
+    float32 view of the estimate (the plain version on the CPU), with
+    ``sel_idx`` (C,) int32 and its channel table ``order``
+    (``quantize.channel_order(sel_idx)``, computed here when not given),
+    then back to the estimate's dtype."""
+    # the kernel module imports this one: import it where it is used
+    from repro_torch.kernels.consolidate import consolidate_fused
+    x_tilde = baf_stream_backward(baf, z_hat_sel, dtype=dtype)
+    z_tilde = forward_fn(x_tilde)
+    if codes is None:
+        return z_tilde
+    if qp is None:
+        raise ValueError("consolidation needs the quant params with codes")
+    d, c = z_tilde.shape[-1], codes.shape[-1]
+    z32 = z_tilde.reshape(1, -1, d).to(torch.float32).contiguous()
+    consolidate_fused(z32, codes.reshape(1, -1, c).contiguous(),
+                      qp.mins.reshape(1, c), qp.maxs.reshape(1, c), qp.bits,
+                      sel_idx, order=order)
+    return z32.reshape(z_tilde.shape).to(z_tilde.dtype)

@@ -37,8 +37,10 @@ class QuantParams(NamedTuple):
 
 
 def _scalar(like: torch.Tensor, value: float) -> torch.Tensor:
-    """``value`` as a 0-dim float32 tensor on ``like``'s device."""
-    return torch.tensor(float(value), dtype=torch.float32, device=like.device)
+    """``value`` as a 0-dim float32 tensor filled on ``like``'s device: no
+    copy from the host, which would wait for the device's queue."""
+    return torch.full((), float(value), dtype=torch.float32,
+                      device=like.device)
 
 
 def f16_next_up(h: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,10 @@ Counterpart of ``repro/launch/train.py``, with the same arguments and
       --steps 50 --ckpt-dir ck --ckpt-every 20   # kill -TERM mid-run,
                                                  # rerun: resumes
 
-One process on one device; the multi-host mesh of the reference waits for
-the distributed slice (ROADMAP Queue 1 step 10b).
+One process on one device. The multi-pod step with the compressed
+gradient exchange (``make_train_step(..., mesh=, multi_pod=True)``, one
+process per pod) is driven by ``chip_smoke.py`` and the tests; the
+reference's multi-host mesh launch waits for ROADMAP Queue 1 step 10d.
 """
 from __future__ import annotations
 

@@ -10,9 +10,12 @@ its length, and on the CPU the wrapper runs its plain version.
 ``impl="blocked"`` runs ``blocked_attention`` (the JAX package's jnp path:
 the kernel's plain version q block by q block) on any device; the smoke
 check holds the kernel against it. Decode attention is plain torch, as it
-is jnp einsum in the JAX package. The flash-decode branch over a
-sequence-sharded cache waits for the distributed slice (ROADMAP Queue 1
-step 10).
+is jnp einsum in the JAX package. Under ``distributed.flash_decode_ctx``
+each KV cache holds its rank's S_max / W slots of a sequence-sharded cache
+(``init_kv_cache`` allocates that shard) and decode goes through
+``distributed.collectives.seq_sharded_decode_attention``: the token is
+written by the rank that holds its slot and the shards' partial softmaxes
+merge with two all-reduces.
 """
 from __future__ import annotations
 
@@ -22,6 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.api import current_flash_decode
+from repro_torch.distributed.collectives import (axis_group,
+                                                 seq_sharded_decode_attention)
 from repro_torch.nn import frozen, normal
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
@@ -197,6 +203,15 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(batch, max_len, n_kv_heads, head_dim, dtype=torch.bfloat16,
                   device=None) -> KVCache:
+    """An empty cache of ``max_len`` positions; under
+    ``flash_decode_ctx`` this rank's shard of them, max_len / W slots."""
+    fd = current_flash_decode()
+    if fd is not None:
+        _, world, _ = axis_group(fd.mesh, fd.axis)
+        if max_len % world:
+            raise ValueError(f"a sequence-sharded cache of {max_len} "
+                             f"positions does not split over {world} ranks")
+        max_len //= world
     shape = (batch, max_len, n_kv_heads, head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device), length=0)
@@ -209,18 +224,33 @@ def attention_decode(p: Attention, x, cache: KVCache, *, n_heads, n_kv_heads,
     (the JAX package returns new arrays); only the filled prefix (its last
     ``cache.window`` slots, with a window) enters the softmax, where the
     JAX package masks the rest to exactly zero. The token sits at position
-    ``cache.start + cache.length``."""
+    ``cache.start + cache.length``. Under ``flash_decode_ctx`` the cache is
+    this rank's shard and ``cache.length`` counts the whole sequence; that
+    branch refuses a window and a ``start`` past 0, which the reference's
+    branch does not know."""
     dtype = dtype or x.dtype
     b = x.shape[0]
     slot = cache.length
     pos = cache.start + slot
-    if slot >= cache.k.shape[1]:
-        raise ValueError(f"KV cache of {cache.k.shape[1]} positions is full")
+    fd = current_flash_decode()
+    world = 1 if fd is None else axis_group(fd.mesh, fd.axis)[1]
+    if fd is not None and (cache.window is not None or cache.start):
+        raise ValueError("the sequence-sharded decode takes neither a "
+                         "window nor a cache that starts past position 0")
+    if slot >= cache.k.shape[1] * world:
+        raise ValueError(f"KV cache of {cache.k.shape[1] * world} positions "
+                         f"is full")
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, dtype)
     cos, sin = rope_freqs(head_dim, rope_theta,
                           torch.arange(pos, pos + 1, device=x.device))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if fd is not None:
+        out, _, _ = seq_sharded_decode_attention(
+            q[:, 0], cache.k, cache.v, k[:, 0], v[:, 0], slot, fd.mesh,
+            axis=fd.axis)
+        y = out.to(dtype)[:, None, :] @ p.wo.to(dtype)
+        return y, cache._replace(length=slot + 1)
     cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
     cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
     lo = 0 if cache.window is None else max(0, slot + 1 - cache.window)

@@ -23,10 +23,14 @@ consumes the state it is given. The weight-decay mask is the reference's
 default (ndim >= 2) on the reference's layout, where the layers are
 stacked: every leaf of a layer is decayed, norms and biases included.
 
-The compressed cross-pod gradient exchange (``grad_compress_bits`` with
-``multi_pod=True``) is not ported yet (ROADMAP Queue 1 step 10b); in a
-single process the field is ignored, as the reference ignores it when
-``multi_pod`` is false.
+Multi-pod training with ``grad_compress_bits`` and ``multi_pod=True``
+runs one process per pod over the ``pod`` axis of a ``DeviceMesh``: each
+rank takes its pod's contiguous share of the global batch (as ``P("pod")``
+splits it), computes its gradients, adds its error-feedback residuals,
+and exchanges every leaf with n-bit codes (``optim.grad_compress``); the
+loss is averaged over the pods, the new residuals are kept for the next
+step, and AdamW runs on the exchanged mean, the same on every pod.
+Without ``multi_pod`` the field is ignored, as in the reference.
 """
 from __future__ import annotations
 
@@ -34,14 +38,18 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.api import axis_ctx, train_rules
+from repro_torch.distributed.collectives import axis_group
 from repro_torch.models.encdec import encdec_loss, init_encdec
 from repro_torch.models.lm import init_lm, lm_loss
 from repro_torch.optim import (AdamWConfig, AdamWState, adamw_init,
                                adamw_update, clip_scale, cosine_with_warmup,
                                global_norm)
+from repro_torch.optim.grad_compress import _quantized_psum_one
 
 # the parameter names of the layers the reference stacks on a leading axis
 STACKED = ("layers.", "enc_layers.", "dec_layers.")
@@ -182,21 +190,58 @@ def _update(state: TrainState, grads: dict, lr, acfg: AdamWConfig):
     return AdamWState(opt.count + 1, opt.mu, opt.nu), metrics
 
 
-def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *,
+def pod_share(batch: dict, npod: int, pod: int) -> dict:
+    """Pod ``pod``'s contiguous 1/npod of every (B, ...) leaf's rows."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % npod:
+            raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not a "
+                             f"multiple of {npod} pods")
+        out[k] = v.chunk(npod)[pod]
+    return out
+
+
+@torch.no_grad()
+def pod_exchange(grads: dict, ef: Optional[dict], bits: int, group,
+                 npod: int) -> None:
+    """In place, leaf by leaf: grads[k] (+ ef[k]) -> the pods' mean with
+    n-bit codes on the wire; ef[k] <- this pod's residual."""
+    for k in list(grads):
+        g = grads[k] if ef is None else grads[k] + ef[k]
+        grads[k], resid = _quantized_psum_one(g, bits, group, npod)
+        if ef is not None:
+            ef[k].copy_(resid)
+
+
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *, mesh=None,
                     multi_pod: bool = False):
     """-> train_step(state, batch) -> (new state, metrics: loss, grad_norm,
     lr). The step updates ``state``'s tensors in place and returns them in
-    the new state."""
-    if tcfg.grad_compress_bits is not None and multi_pod:
-        raise NotImplementedError(
-            "the compressed cross-pod gradient exchange is not ported yet "
-            "(ROADMAP Queue 1 step 10b)")
+    the new state. With ``grad_compress_bits`` and ``multi_pod``, ``mesh``
+    is the DeviceMesh whose ``pod`` axis the exchange runs over, ``batch``
+    the global batch, and each rank trains on its pod's share."""
+    compressed = tcfg.grad_compress_bits is not None and multi_pod
+    if compressed and mesh is None:
+        raise ValueError("the compressed cross-pod exchange needs the mesh "
+                         "whose 'pod' axis it runs over")
     grads_of = make_grads_fn(cfg, tcfg)
     sched = cosine_with_warmup(tcfg.peak_lr, tcfg.warmup_steps,
                                tcfg.total_steps)
+    if compressed:
+        group, npod, pod = axis_group(mesh, "pod")
 
     def train_step(state: TrainState, batch: dict):
-        loss, grads = grads_of(state.params, batch)
+        if compressed:
+            with axis_ctx(train_rules(False)):
+                loss, grads = grads_of(state.params,
+                                       pod_share(batch, npod, pod))
+            pod_exchange(grads, state.ef, tcfg.grad_compress_bits, group,
+                         npod)
+            loss = loss.clone()
+            dist.all_reduce(loss, group=group)
+            loss = loss / torch.full((), float(npod), device=loss.device)
+        else:
+            loss, grads = grads_of(state.params, batch)
         lr = sched(state.step)
         opt, metrics = _update(state, grads, lr, tcfg.adamw)
         metrics.update(loss=loss, lr=lr)

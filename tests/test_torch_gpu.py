@@ -16,6 +16,8 @@ rounds its output to bf16 once, as the plain version does; in bf16 it
 feeds P to the tensor cores as a high and a low bf16 part). Linear scan: 1e-4 (float32 sums in
 another order over 16-step chunks), NaN where the plain version has NaN.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1059,3 +1061,175 @@ def test_flash_f32_at_the_detect_heads_shape(cuda, b):
     want = flash_attention_plain(q, k, v, causal=False)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# Distributed training and the pod pipeline, world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A (pod, data, model) = (1, 1, 1) mesh over NCCL in this process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from repro_torch.distributed import init_mesh
+    mesh = init_mesh((1, 1, 1), backend="nccl", rank=0, world=1,
+                     init_file=str(tmp_path_factory.mktemp("nccl")
+                                   / "rendezvous"), device_type="cuda")
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _stream(shape, seed, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32) * 3
+    x[..., 1] = 1e5
+    x[..., 2] = -7e4
+    x[..., 4] = -0.0
+    x[..., 5] = rng.choice([0.0, -0.0], size=shape[:-1])
+    return torch.from_numpy(x).to(dtype)
+
+
+def _f16_bits(t):
+    return t.view(torch.int16)
+
+
+@pytest.mark.parametrize("subset", [False, True])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_stream_quantizer_on_the_card_matches_cpu(cuda, bits, subset):
+    """The pod pipeline's quantizer (the kernel at B = 1, R = B * S) on a
+    bf16 stream: codes and side info bit-identical to the CPU, one launch."""
+    from repro_torch.distributed.pipeline import _quantize_stream
+    x = _stream((2, 512, 3584), bits)
+    sel = torch.arange(0, 3584, 4, dtype=torch.int32) if subset else None
+    want = _quantize_stream(x, bits, sel)
+    before = _build.QUANTIZE.launches
+    got = _quantize_stream(x.to(cuda), bits,
+                           None if sel is None else sel.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.QUANTIZE.launches - before == 1
+    assert torch.equal(got[0].cpu(), want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(_f16_bits(g.cpu()), _f16_bits(w))
+
+
+@pytest.mark.parametrize("bits", [1, 3, 4, 8])
+def test_pack_codes_on_the_card(cuda, bits):
+    from repro_torch.distributed.pipeline import pack_codes, unpack_codes
+    codes = torch.randint(0, 1 << bits, (2, 1000, 37), dtype=torch.uint8)
+    wire = pack_codes(codes.to(cuda), bits)
+    assert torch.equal(wire.cpu(), pack_codes(codes, bits))
+    back = unpack_codes(wire, bits, codes.numel()).reshape(codes.shape)
+    assert torch.equal(back.cpu(), codes)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantized_pod_mean_world_one(nccl_mesh, cuda, bits):
+    """At one pod the mean is the dequantized codes of the gradient itself
+    and the residual what they miss: bit for bit the plain formula."""
+    from repro_torch.optim.grad_compress import quantized_pod_mean
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    grads = {"w": torch.randn((512, 384), generator=g, device=cuda),
+             "b": torch.randn((384,), generator=g, device=cuda) * 1e-3,
+             "z": torch.zeros((4, 4), device=cuda)}
+    means, resid = quantized_pod_mean(grads, nccl_mesh, bits=bits)
+    levels = (1 << (bits - 1)) - 1
+    for k, v in grads.items():
+        one = lambda x: torch.tensor(float(x), device=cuda)
+        scale = torch.maximum(v.abs().amax(), one(1e-30)) / one(levels)
+        codes = torch.clamp(torch.round(v / scale), -levels, levels)
+        assert torch.equal(means[k], codes * scale / one(1)), k
+        assert torch.equal(resid[k], v - codes * scale), k
+
+
+@pytest.mark.parametrize("length", [0, 511, 1023])
+def test_seq_sharded_decode_world_one(nccl_mesh, cuda, length):
+    """qwen2-7b's heads (28 over 4 kv heads, head dim 128) against the
+    plain one-token decode in float32, 1e-5 of the largest entry."""
+    from repro_torch.distributed.collectives import \
+        seq_sharded_decode_attention
+    g = torch.Generator(device=cuda).manual_seed(length)
+    ck, cv = (torch.randn((2, 1024, 4, 128), generator=g, device=cuda)
+              for _ in range(2))
+    q = torch.randn((2, 28, 128), generator=g, device=cuda)
+    nk, nv = (torch.randn((2, 4, 128), generator=g, device=cuda)
+              for _ in range(2))
+    fk, fv = ck.clone(), cv.clone()
+    fk[:, length], fv[:, length] = nk, nv
+    got, lk, _ = seq_sharded_decode_attention(q, ck, cv, nk, nv, length,
+                                              nccl_mesh, axis="model")
+    p = torch.softmax(torch.einsum("bkgh,bskh->bkgs",
+                                   q.reshape(2, 4, 7, 128),
+                                   fk[:, :length + 1]) / 128 ** 0.5, -1)
+    want = torch.einsum("bkgs,bskh->bkgh", p,
+                        fv[:, :length + 1]).reshape(2, 28 * 128)
+    assert torch.equal(lk, fk)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_lm_decode_under_flash_decode_ctx_on_the_card(nccl_mesh, cuda):
+    """qwen2-7b's smoke LM in float32 at world size 1: the sharded decode
+    against the unsharded one, 1e-5 of the largest logit."""
+    from repro_torch import configs
+    from repro_torch.distributed import flash_decode_ctx
+    from repro_torch.models.lm import init_decode_cache, init_lm, \
+        lm_decode_step
+    cfg = configs.get_smoke_config("qwen2_7b").with_(dtype=torch.float32)
+    model = init_lm(cfg, seed=0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    runs = []
+    for sharded in (False, True):
+        ctx = flash_decode_ctx(nccl_mesh) if sharded else \
+            contextlib.nullcontext()
+        with ctx, torch.no_grad():
+            cache = init_decode_cache(cfg, 2, 16, device=cuda)
+            runs.append(torch.stack([lm_decode_step(
+                model, cache, tokens[:, t].to(cuda))[0]
+                for t in range(8)]))
+    torch.testing.assert_close(runs[1], runs[0], rtol=0,
+                               atol=1e-5 * float(runs[0].abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_subset_pod_transfer_on_the_card(nccl_mesh, cuda, dtype):
+    """C of D channels through quantize (one launch), the stream BaF
+    predictor, a frozen block and consolidate (one launch): the output the
+    plain consolidate's on the same estimate, bit for bit; in float32
+    within 1e-4 of the CPU's largest entry."""
+    from repro_torch.core.baf import BaFStream, BaFStreamConfig
+    from repro_torch.distributed.pipeline import (_quantize_stream,
+                                                  subset_pod_transfer)
+    d, c = 256, 64
+    x = _stream((2, 128, d), 7, dtype)
+    x[..., 1:3] = 0.5
+    sel = torch.arange(0, d, d // c, dtype=torch.int32)
+    w = torch.randn((d, d), generator=torch.Generator().manual_seed(2)) * .05
+    outs, seen = [], {}
+    for dev in (cuda, torch.device("cpu")):
+        baf = BaFStream(BaFStreamConfig(c=c, d_in=d, hidden=64), seed=3,
+                        device=dev)
+        wd = w.to(dev, dtype)
+
+        def block(t):
+            out = t @ wd
+            seen[dev.type] = out.clone()       # consolidation writes in out
+            return out
+        q0, c0 = _build.QUANTIZE.launches, _build.CONSOLIDATE.launches
+        outs.append(subset_pod_transfer(x.to(dev), nccl_mesh,
+                                        sel_idx=sel.to(dev), baf=baf,
+                                        forward_fn=block, dtype=dtype))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert _build.QUANTIZE.launches - q0 == 1
+            assert _build.CONSOLIDATE.launches - c0 == 1
+    codes, mn, mx = _quantize_stream(x.to(cuda), 8, sel.to(cuda))
+    z32 = seen["cuda"].reshape(1, -1, d).float()
+    consolidate_plain(z32, codes.reshape(1, -1, c), mn[None], mx[None], 8,
+                      sel.long().to(cuda))
+    assert torch.equal(outs[0], z32.reshape(x.shape).to(dtype))
+    if dtype == torch.float32:
+        torch.testing.assert_close(outs[0].cpu(), outs[1], rtol=0,
+                                   atol=1e-4 * float(outs[1].abs().max()))

@@ -22,7 +22,8 @@ import torch
 
 from repro_torch import pipeline, serve, tasks
 from repro_torch.configs.yolo_baf import smoke_config
-from repro_torch.core.baf import BaFConv, BaFConvConfig
+from repro_torch.core.baf import (BaFConv, BaFConvConfig, BaFStream,
+                                  BaFStreamConfig)
 from repro_torch.core.split import SplitInferenceEngine, fidelity_metrics
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import CNN
@@ -73,7 +74,10 @@ def test_port_imports_nothing_of_jax_or_repro():
                  "repro_torch.configs.arctic_480b",
                  "repro_torch.configs.zamba2_1p2b",
                  "repro_torch.configs.pixtral_12b",
-                 "repro_torch.configs.whisper_tiny"):
+                 "repro_torch.configs.whisper_tiny",
+                 "repro_torch.distributed.pipeline",
+                 "repro_torch.optim.grad_compress",
+                 "repro_torch.launch.pod_boundary"):
         assert name in res["modules"]
 
 
@@ -113,6 +117,7 @@ def test_device_none_means_the_card():
         lambda: resolve_device(None),
         lambda: CNN(cfg),
         lambda: BaFConv(BaFConvConfig(c=8, q=cfg.split_q, hidden=8)),
+        lambda: BaFStream(BaFStreamConfig(c=4, d_in=8, hidden=4)),
         lambda: pipeline.compile(pipeline.OperatingPoint(c=8, bits=8),
                                  pipeline.ModelSpec(sel_idx=list(range(8)))),
     ]

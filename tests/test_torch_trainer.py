@@ -112,8 +112,10 @@ def test_decay_mask_follows_the_stacked_layout():
 
 
 def test_multi_pod_compression_is_not_ported():
+    """The multi-pod exchange is ported now (tests/test_torch_trainer_
+    multipod.py); without the mesh whose pod axis it runs over it raises."""
     tcfg = configs.get_smoke_config("qwen2_7b")
-    with pytest.raises(NotImplementedError, match="10b"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         make_train_step(tcfg, TrainConfig(grad_compress_bits=8),
                         multi_pod=True)
     # in one process the field is ignored, as in the reference; the
