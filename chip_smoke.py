@@ -184,6 +184,26 @@ package ``repro``. Phases, each printing lines before the last:
      two ranks on the CPU (1e-4 relative at step 1, 1e-3 after), and (c)
      the sequence-sharded decode at (B, H, K, hd) = (2, 28, 4, 128) over
      32,768 slots, half a rank, against the unsharded decode at 1e-5;
+ 10d. the sharded cloud tier at the paper's full width (phase 6's system,
+     images and submit times, one operating point: C=64, 8 bits, rans;
+     cuDNN deterministic): (d) ``analyze_program`` of the restore + cloud
+     body at B=8 (flops, bytes, the consolidate kernel's charge) and
+     ``seed_cost_from_program``'s roofline per item beside the body's
+     measured time per item; (a) a ``ServingGateway`` on
+     ``MeshExecutor(make_dev_mesh(prefer="data"))`` (data=1, model=1)
+     serving the 16 requests under a ``CalibratedCostModel`` fitted on a
+     ``SerialExecutor`` serve and frozen: every response's logits
+     bit-identical to the serial serve's, quantize and histogram once a
+     request and consolidate once a micro-batch, wall time, requests/s,
+     peak memory; (b) a micro-batch of 8 on two shards of cuda:0: each
+     shard bit-identical to the serial path at 4 rows, the batch within
+     1e-5 of the serial bucket's largest logit, consolidate once a shard;
+     (c) two federated ``MultiTenantGateway``s on one shared
+     ``MeshExecutor``: a replay identical (records and logits) and equal to
+     the same federation on a ``SerialExecutor``; (e) ``MultiTaskGateway``
+     refusing a mesh executor; (f) ``launch/quickstart.py`` on the card
+     against the CPU (the CPU's z): selection, codes, side info, wire bits
+     and the container identical, quantize and consolidate once each;
  11. times: each kernel's device time and device operations per call at
      its path's shapes (torch.profiler) beside its bound, its plain version
      and, where one PyTorch call computes the same function, that call; the
@@ -203,7 +223,9 @@ package ``repro``. Phases, each printing lines before the last:
      (``*/train_zamba2_1p2b_compressed``); quantize at the pod boundary's
      (1, 8192, 3584) with all channels and with 896
      (``quantize/pod_stream``, ``quantize/pod_subset``), consolidate at the
-     subset's shape (``consolidate/pod_subset``).
+     subset's shape (``consolidate/pod_subset``); the rows ``quantize/mesh``,
+     ``histogram/mesh`` and ``consolidate/mesh`` carry phase 10d's launches
+     beside the main path's times (the same shapes).
 
 Then one JSON line with every kernel's numbers, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any failed
@@ -4143,6 +4165,259 @@ def time_pod_kernels(row, pod) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10d: the sharded cloud tier
+# ---------------------------------------------------------------------------
+
+# the federation: two gateways of MESH_TENANTS tenants, each tenant sending
+# MESH_PER_TENANT requests, so each gateway fills one bucket of
+# MESH_TENANTS * MESH_PER_TENANT rows
+MESH_TENANTS, MESH_PER_TENANT = 2, 2
+MESH_SHARD_TOL = 1e-5            # two shards against the serial bucket,
+                                 # of its largest |logit|
+
+
+def mesh_path(dev, smi: str) -> dict:
+    """Phase 10d -> the launches of the mesh serve (a), by kernel.
+
+    Phase 6's system, images and submit times at the paper's full width,
+    one operating point (C=64, 8 bits, rans: the main path's, so its
+    kernels run at the shapes phase 11 times); cuDNN deterministic."""
+    import torch
+    from repro_torch.configs.yolo_baf import full_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_F32,
+                                         make_dev_mesh)
+    from repro_torch.pipeline import OperatingPoint
+    from repro_torch.pipeline.plan import DecodedBatch
+    from repro_torch.serve import (ChannelConfig, MeshExecutor,
+                                   SerialExecutor, ServingGateway,
+                                   SimulatedChannel, seed_cost_from_program)
+    from repro_torch.serve.mesh_executor import restore_cloud_cost
+
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    cfg = full_config()
+    model, bank = serving_system(dev, cfg, SERVE_BANK, HIDDEN)
+    op = OperatingPoint(c=C, bits=BITS, backend="rans")
+    imgs = serving_images(cfg, SERVE_N, 41)
+    times = [0.01 * i for i in range(SERVE_N)]
+
+    def gateway(executor):
+        return ServingGateway(
+            model, bank, default_op=op, max_batch=SERVE_MAX_BATCH,
+            channel=SimulatedChannel(ChannelConfig(
+                bandwidth_bps=100e6, base_latency_s=0.01)),
+            executor=executor, device=dev)
+
+    # (d) the restore + cloud body's program cost at B=8, its roofline seed
+    serial = gateway(SerialExecutor())
+    plan = serial.plan_for(op)
+    shape = (SERVE_MAX_BATCH, cfg.split_hw, cfg.split_hw, C)
+    est = restore_cloud_cost(plan, shape)
+    cal = seed_cost_from_program(plan, shape)
+    codes = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    mins = torch.zeros((shape[0], 1, 1, C), dtype=torch.float16, device=dev)
+    maxs = torch.ones((shape[0], 1, 1, C), dtype=torch.float16, device=dev)
+    body_ms = event_ms(lambda: plan.spec.params.cloud(
+        plan.restore_device(codes, mins, maxs)), iters=20)
+    roof = max(est["flops"] / PEAK_FLOPS_F32, est["bytes"] / HBM_BW)
+    print(f"mesh (d) restore + cloud at {shape} ({smi}): {est['flops']!r} "
+          f"flops, {est['bytes']!r} bytes ({len(est['bytes_by_op'])} kinds "
+          f"of op; kernel charges {est['kernels']}); roofline "
+          f"{roof / shape[0] * 1e3!r} ms an item (float32 67 TFLOP/s, "
+          f"3.35 TB/s), seed per_item_s {cal.seed_per_item_s!r}; measured "
+          f"{body_ms / shape[0]!r} ms an item (CUDA events, launch "
+          f"included)")
+    if not (est["flops"] > 0 and cal.seed_per_item_s > 0 and [
+            k["name"] for k in est["kernels"]] == ["consolidate"]):
+        raise AssertionError(f"restore + cloud program cost: {est}")
+
+    # (a) one card as the mesh: the serial tier calibrates, the mesh serves
+    serial.executor.cost = cal
+    seen_s = watch_batches(serial.executor)
+    resp_s, _ = serial.serve(imgs, submit_times=times)
+    cal.freeze()
+    mesh_ex = MeshExecutor(make_dev_mesh(prefer="data"), cost=cal)
+    mesh_gw = gateway(mesh_ex)
+    if mesh_gw._run_fn != mesh_gw._run_batch_mesh or \
+            dict(mesh_ex.mesh.shape) != {"data": 1, "model": 1}:
+        raise AssertionError("the gateway does not route through the mesh")
+    seen_m = watch_batches(mesh_ex)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    resp_m, tel_m = mesh_gw.serve(imgs, submit_times=times)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    same = all(np.array_equal(a.logits, b.logits)
+               for a, b in zip(resp_s, resp_m))
+    print(f"mesh (a) ServingGateway on MeshExecutor(make_dev_mesh(prefer="
+          f"'data')) = {dict(mesh_ex.mesh.shape)} ({smi}): {SERVE_N} "
+          f"requests in {wall!r} s wall, {SERVE_N / wall!r} requests/s; "
+          f"peak memory {peak / 1e9!r} GB, {(peak - held) / 1e9!r} GB above "
+          f"what earlier phases held; micro-batches "
+          f"{[(len(b.requests), b.padded_size) for b, _ in seen_m]}; "
+          f"launches {launches}; calibrated fit base {cal.base_s!r} s, "
+          f"per item {cal.per_item_s!r} s over {len(cal.samples)} samples; "
+          f"logits bit-identical to the SerialExecutor gateway's: {same}")
+    want = {"quantize": SERVE_N, "histogram": SERVE_N,
+            "consolidate": len(seen_m)}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"the mesh serve launched {launches}, not {want}")
+    check_served(resp_m, seen_m, cfg.num_classes, SERVE_N)
+    if not same or len(resp_m) != len(resp_s) or \
+            [len(b.requests) for b, _ in seen_m] != \
+            [len(b.requests) for b, _ in seen_s]:
+        raise AssertionError("the mesh serve's logits are not the serial "
+                             "serve's")
+
+    # (b) two shards on one card: the first full micro-batch, again
+    batch, serial_logits = next((b, lg) for b, lg in seen_s
+                                if b.padded_size == SERVE_MAX_BATCH)
+    decoded = plan.decode_batch([r.blob for r in batch.requests])
+    two = MeshExecutor(make_dev_mesh(2, prefer="data", device=dev), cost=cal)
+    _build.reset_launches()
+    got = two.run_sharded(plan, decoded, batch.padded_size)
+    sync(dev)
+    shard_launches = launch_counts()["consolidate"]
+    rows = two.shard_rows(batch.padded_size)
+    shard_same = []
+    for i in range(2):
+        part = slice(i * rows, (i + 1) * rows)
+        sub = decoded.pad_to(2 * rows)
+        shard = DecodedBatch(codes=sub.codes[part], mins=sub.mins[part],
+                             maxs=sub.maxs[part])
+        want_rows = plan.spec.params.cloud(plan.restore(shard)).cpu().numpy()
+        shard_same.append(bool(np.array_equal(got[part], want_rows)))
+    gap = float(np.abs(got - serial_logits).max())
+    tol = MESH_SHARD_TOL * float(np.abs(serial_logits).max())
+    print(f"mesh (b) two shards of {rows} rows on {dev}: each shard "
+          f"bit-identical to the serial path at {rows} rows: {shard_same}; "
+          f"the batch against the serial {batch.padded_size}-row bucket max "
+          f"abs diff {gap!r} (tolerance {tol!r}); consolidate launches "
+          f"{shard_launches}")
+    if not all(shard_same) or gap > tol or shard_launches != 2:
+        raise AssertionError("two shards on one card disagree with the "
+                             "serial path")
+
+    # (c) a federation of two gateways on one shared mesh executor
+    mesh_fed = federation_runs(dev, model, bank, op, cfg, imgs, MeshExecutor(
+        make_dev_mesh(prefer="data"), cost=cal), repeat=2)
+    serial_fed = federation_runs(dev, model, bank, op, cfg, imgs,
+                                 SerialExecutor(cost=cal), repeat=1)
+    replay = mesh_fed[0] == mesh_fed[1]
+    as_serial = mesh_fed[0] == serial_fed[0]
+    print(f"mesh (c) federation of 2 MultiTenantGateways x {MESH_TENANTS} "
+          f"tenants x {MESH_PER_TENANT} requests on one MeshExecutor: replay "
+          f"identical (records and logits) {replay}; records and logits "
+          f"identical to the SerialExecutor federation's {as_serial}")
+    if not (replay and as_serial):
+        raise AssertionError("the mesh federation does not replay or does "
+                             "not match the serial federation")
+
+    # (e) the task gateway refuses the mesh executor
+    mesh_refused(dev, model, bank, cfg)
+
+    # (f) the quickstart on the card against the CPU
+    quickstart_card_vs_cpu(dev)
+    torch.backends.cudnn.deterministic = deterministic
+    print(f"phase 10d: {time.perf_counter() - t_phase!r} s")
+    return {f"{k}/mesh": v for k, v in want.items()}
+
+
+def federation_runs(dev, model, bank, op, cfg, imgs, executor,
+                    repeat: int) -> list:
+    """``repeat`` runs of two federated MultiTenantGateways sharing
+    ``executor`` -> each run's (records, logits) per gateway."""
+    from repro_torch.serve import (ChannelConfig, GatewayFederation,
+                                   MultiTenantGateway, TenantRequest,
+                                   TenantSpec)
+    gws = [MultiTenantGateway(
+        model, bank, tenants=[TenantSpec(f"g{g}t{i}")
+                              for i in range(MESH_TENANTS)],
+        channel_cfg=ChannelConfig(bandwidth_bps=1e9, base_latency_s=0.001),
+        default_op=op, max_batch=MESH_TENANTS * MESH_PER_TENANT,
+        batch_window_s=None, executor=executor, shared_executor=True,
+        seed=g, device=dev) for g in range(2)]
+    work = [[TenantRequest(f"g{g}t{k % MESH_TENANTS}",
+                           imgs[(4 * g + k) % len(imgs)], t_submit=1e-4 * k)
+             for k in range(MESH_TENANTS * MESH_PER_TENANT)]
+            for g in range(2)]
+    fed = GatewayFederation(gws)
+    runs = []
+    for _ in range(repeat):
+        out = fed.serve(work)
+        runs.append([(tel.records, tel.shed,
+                      {t: [r.logits.tobytes() for r in rs]
+                       for t, rs in res.items()}) for res, tel in out])
+        if fed.depth() != 0 or any(tel.shed for _, tel in out):
+            raise AssertionError("the federation shed or left work queued")
+    return runs
+
+
+def mesh_refused(dev, model, bank, cfg) -> None:
+    """(e) MultiTaskGateway refuses a mesh executor, as the reference."""
+    import torch
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.serve import LinearCostModel, MeshExecutor, TenantSpec
+    from repro_torch.tasks import HeadConfig, MultiTaskGateway, init_head_bank
+
+    hcfg = HeadConfig(split_p=cfg.split_p, num_classes=cfg.num_classes)
+    heads = init_head_bank(torch.Generator().manual_seed(5), hcfg,
+                           device=dev)
+    refused = None
+    try:
+        MultiTaskGateway(model, bank, tenants=[TenantSpec("t")],
+                         head_bank=heads, head_cfg=hcfg,
+                         executor=MeshExecutor(make_dev_mesh(prefer="data"),
+                                               cost=LinearCostModel()),
+                         device=dev)
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"mesh (e) MultiTaskGateway on a MeshExecutor: refused with "
+          f"NotImplementedError: {refused!r}")
+    if refused is None or "run_sharded" not in refused:
+        raise AssertionError("MultiTaskGateway took a mesh executor")
+
+
+def quickstart_card_vs_cpu(dev) -> None:
+    """(f) ``launch/quickstart.py`` on the card and on the CPU, both given
+    the CPU's split activation: selection, codes, side info, wire bits and
+    the container identical, z~ within RESTORE_TOL of the largest entry,
+    quantize and consolidate once each on the card."""
+    import torch
+    from repro_torch.launch import quickstart
+
+    inputs = quickstart.make_inputs(0)
+    cpu = quickstart.run(*inputs, device=torch.device("cpu"))
+    launches0 = launch_counts()
+    card = quickstart.run(*inputs, device=dev, z=cpu["z"])
+    sync(dev)
+    launches = {k: v - launches0[k] for k, v in launch_counts().items()}
+    same = (np.array_equal(card["sel"], cpu["sel"])
+            and np.array_equal(card["codes"], cpu["codes"])
+            and card["side_info"] == cpu["side_info"]
+            and card["wire_bits"] == cpu["wire_bits"]
+            and card["blob"] == cpu["blob"])
+    gap = float(np.abs(card["z_tilde"] - cpu["z_tilde"]).max())
+    tol = RESTORE_TOL * float(np.abs(cpu["z_tilde"]).max())
+    for line in card["lines"]:
+        print(f"  quickstart on the card: {line}")
+    print(f"mesh (f) quickstart card vs CPU (the CPU's z): selection, codes, "
+          f"side info, {card['wire_bits']} wire bits and the container "
+          f"identical {same}; z~ max abs diff {gap!r} (tolerance {tol!r}); "
+          f"launches {launches}")
+    if not same or gap > tol or not card["inside"] or \
+            {k: v for k, v in launches.items() if v} != {"quantize": 1,
+                                                          "consolidate": 1}:
+        raise AssertionError("the quickstart disagrees between card and CPU")
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: kernel times
 # ---------------------------------------------------------------------------
 
@@ -4266,6 +4541,10 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes, pod) -> list:
         name = base + "_compressed"
         rows.append(dict(next(r for r in rows if r["name"] == base),
                          name=name, launches=launches[name]))
+    # phase 10d's mesh serve runs the main path's kernels at its shapes
+    for base in ("quantize", "histogram", "consolidate"):
+        rows.append(dict(next(r for r in rows if r["name"] == base),
+                         name=base + "/mesh", launches=launches[base + "/mesh"]))
     return rows
 
 
@@ -4557,6 +4836,7 @@ def main() -> int:
     pod = distributed_path(dev, loss1["zamba2_1p2b"], qwen)
     launches.update(pod["launches"])
     errs.update(pod["errs"])
+    launches.update(mesh_path(dev, smi))
     rows = time_kernels(dev, errs, launches, res["path_codes"], pod)
     print(f"total {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": rows}))

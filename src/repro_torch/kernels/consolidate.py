@@ -17,6 +17,7 @@ import torch
 from repro_torch.core.baf import consolidate, scatter_consolidated
 from repro_torch.core.quant import QuantParams
 from repro_torch.kernels import _build
+from repro_torch.launch.hlo_cost import charged
 from repro_torch.kernels.quantize import channel_order
 
 THREADS = 256                  # threads of a block
@@ -60,6 +61,19 @@ def consolidate_plain(z: torch.Tensor, codes: torch.Tensor,
                                 sel_idx)
 
 
+def consolidate_cost(z, codes, mins, maxs, bits, sel_idx=None, *,
+                     order=None):
+    """(flops, bytes) of a call: the selected elements of z read and
+    written once, codes, fp16 side info and the channel table's C int32
+    read once (PERF.md's kernel table)."""
+    b, r, p = z.shape
+    c = p if sel_idx is None else sel_idx.numel()
+    return 0.0, (2 * b * r * c * z.element_size()
+                 + codes.numel() * codes.element_size() + 2 * b * c * 2
+                 + (0 if sel_idx is None else c * 4))
+
+
+@charged("consolidate", consolidate_cost)
 def consolidate_fused(z: torch.Tensor, codes: torch.Tensor,
                       mins: torch.Tensor, maxs: torch.Tensor, bits: int,
                       sel_idx: torch.Tensor | None = None, *,

@@ -22,9 +22,11 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch.hlo_cost import charged
 
 HEAD_DIMS = (8, 16, 32, 64, 128)   # the kernel's instantiations
 _ENTRIES = {torch.float32: "flash_attention_f32",
@@ -160,6 +162,22 @@ class _FlashAttention(torch.autograd.Function):
                                           window=ctx.window), None, None)
 
 
+def flash_attention_cost(q, k, v, *, causal: bool = True,
+                         window: int | None = None):
+    """(flops, bytes) of a call: 4 hd flops for each (query, key) pair the
+    mask keeps, in each (batch, head); q, k, v read once and the output
+    written once, in their dtype."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    pos = np.arange(sq) + (sk - sq)               # each query's position
+    hi = pos if causal else np.full(sq, sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window is not None else 0
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    return (4.0 * b * h * hd * pairs,
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+
+
+@charged("flash_attention", flash_attention_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.launch.hlo_cost import charged
 
 MAX_NSYM = 4096                # bits <= 12
 MAX_GROUP = 4                  # channels a cluster counts (kMaxGroup)
@@ -89,6 +90,14 @@ def histogram_plain(codes: torch.Tensor, nsym: int) -> torch.Tensor:
     return counts.reshape(c, nsym).to(torch.int32)
 
 
+def histogram_cost(codes, nsym):
+    """(flops, bytes) of a call: the codes read once, the int32 counts
+    written once."""
+    c = codes.shape[-1] if codes.dim() else 1
+    return 0.0, codes.numel() * codes.element_size() + c * nsym * 4
+
+
+@charged("histogram", histogram_cost)
 def histogram(codes: torch.Tensor, nsym: int) -> torch.Tensor:
     """Per-channel counts of a (K, C) code matrix -> (C, nsym) int32.
 
@@ -182,6 +191,13 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
         b0 < a0 + a.numel() * a.element_size()
 
 
+def cdf_cost(counts, *, out=None):
+    """(flops, bytes) of a call: the counts read once, the int32 CDF
+    written once."""
+    return 0.0, counts.numel() * (counts.element_size() + 4)
+
+
+@charged("cdf", cdf_cost)
 def cdf(counts: torch.Tensor, *, out: torch.Tensor | None = None
         ) -> torch.Tensor:
     """Exclusive CDF along the symbol axis of (S, C) counts -> (S, C) int32.

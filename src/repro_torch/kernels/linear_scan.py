@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch.hlo_cost import charged
 
 LOG_DECAY_MIN = -4.0   # clamp: e^{|min|*chunk} must stay inside fp32
 LOG_DECAY_MAX = -1e-9
@@ -175,6 +176,29 @@ class _LinearScan(torch.autograd.Function):
                 None, None)
 
 
+def linear_scan_cost(q, k, v, log_decay, *, bonus=None, initial_state=None,
+                     chunk: int = 16, mode: str = "rwkv"):
+    """(flops, bytes) of a call. Flops: each chunk's products over the
+    (t, s) pairs the mask keeps (s < t in rwkv mode, s <= t in ssm), the
+    state carried in and out, and the elementwise decay and bonus terms.
+    Bytes: q, k, v read once in their dtype, the decay, bonus and initial
+    state once in float32, y and the final state written once in
+    float32."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    pairs = chunk * (chunk - 1) // 2 if mode == "rwkv" else \
+        chunk * (chunk + 1) // 2
+    per_chunk = (2 * pairs * dk + 2 * pairs * dv + 4 * chunk * dk * dv
+                 + 8 * chunk * dk)
+    nbytes = ((q.numel() + k.numel()) * q.element_size()
+              + v.numel() * v.element_size() + log_decay.numel() * 4
+              + b * s * h * dv * 4 + b * h * dk * dv * 4
+              + (0 if bonus is None else bonus.numel() * 4)
+              + (0 if initial_state is None else initial_state.numel() * 4))
+    return float(b * h * (s // chunk) * per_chunk), nbytes
+
+
+@charged("linear_scan", linear_scan_cost)
 def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
                 chunk: int = 16, mode: str = "rwkv"):
     """Same contract as :func:`linear_scan_plain`; S must be a multiple of

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.quant import compute_quant_params, quantize
 from repro_torch.kernels import _build
+from repro_torch.launch.hlo_cost import charged
 
 MAX_BITS = 16                  # uint8 codes to 8 bits, uint16 above
 THREADS = 256                  # threads of a block
@@ -68,6 +69,19 @@ def channel_order(sel_idx: torch.Tensor) -> torch.Tensor:
     return torch.stack([order, sel[order]], 1).to(torch.int32).contiguous()
 
 
+def quantize_cost(x, bits, sel_idx=None, *, order=None):
+    """(flops, bytes) of a call: the selected elements of x read once, the
+    channel table's C int32 read once, codes and fp16 side info written
+    once (PERF.md's kernel table)."""
+    b, r, p = x.shape
+    c = p if sel_idx is None else sel_idx.numel()
+    code = 2 if bits > 8 else 1
+    return 0.0, (b * r * c * x.element_size() + (0 if sel_idx is None
+                                                  else c * 4)
+                 + b * r * c * code + 2 * b * c * 2)
+
+
+@charged("quantize", quantize_cost)
 def quantize_fused(x: torch.Tensor, bits: int,
                    sel_idx: torch.Tensor | None = None, *,
                    order: torch.Tensor | None = None):

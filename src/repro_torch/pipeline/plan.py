@@ -277,25 +277,30 @@ class CompressionPlan:
     # -- restore (cloud side, device) ---------------------------------------
     def restore(self, decoded: DecodedBatch) -> torch.Tensor:
         """Dequantize + BaF restore on the plan's device -> z~ (N, H, W, P)."""
-        if self.spec.params is None or self.spec.baf_params is None:
-            raise ValueError(
-                "plan was compiled without model weights (encode/decode "
-                "only); supply params and baf_params in the ModelSpec "
-                "to restore")
         with hooks.timed("pipeline.restore", fused=self.fused):
             codes = torch.from_numpy(
                 np.ascontiguousarray(decoded.codes)).to(self.device)
             mins = torch.from_numpy(decoded.mins).to(self.device)
             maxs = torch.from_numpy(decoded.maxs).to(self.device)
-            split = self.spec.params.split
-            if self.fused:
-                return restore_codes_fused(self.spec.baf_params, split,
-                                           self._sel, codes, mins, maxs,
-                                           bits=self.op.bits,
-                                           order=self._order)
-            return restore_codes(self.spec.baf_params, split, self._sel,
-                                 codes, mins, maxs, bits=self.op.bits,
-                                 consolidation=self.consolidation)
+            return self.restore_device(codes, mins, maxs)
+
+    def restore_device(self, codes: torch.Tensor, mins: torch.Tensor,
+                       maxs: torch.Tensor) -> torch.Tensor:
+        """The restore of codes (N, H, W, C) and fp16 side info (N, 1, 1, C)
+        already on the plan's device -> z~ (N, H, W, P)."""
+        if self.spec.params is None or self.spec.baf_params is None:
+            raise ValueError(
+                "plan was compiled without model weights (encode/decode "
+                "only); supply params and baf_params in the ModelSpec "
+                "to restore")
+        split = self.spec.params.split
+        if self.fused:
+            return restore_codes_fused(self.spec.baf_params, split,
+                                       self._sel, codes, mins, maxs,
+                                       bits=self.op.bits, order=self._order)
+        return restore_codes(self.spec.baf_params, split, self._sel, codes,
+                             mins, maxs, bits=self.op.bits,
+                             consolidation=self.consolidation)
 
     def __repr__(self) -> str:
         return (f"CompressionPlan(op={self.op}, fused={self.fused}, "

@@ -4,8 +4,8 @@ channel, scheduler, batcher, executor, rate control and telemetry), as in
 ``repro.serve``.
 
 The LM engine pulls in the model zoo, so it is not imported here; use
-``from repro_torch.serve.engine import ...``. The JAX package's mesh
-executor is not ported yet.
+``from repro_torch.serve.engine import ...``. ``MeshExecutor`` is the
+sharded cloud tier (``serve/mesh_executor.py``).
 """
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.pipeline import Capabilities, NegotiationError
@@ -27,6 +27,8 @@ from repro_torch.serve.executor import (AdmissionDecision, AdmissionPolicy,
 from repro_torch.serve.gateway import (GatewayFederation, GatewayResponse,
                                        MultiTenantGateway, ServingGateway,
                                        TenantRequest, serve_federated)
+from repro_torch.serve.mesh_executor import (MeshExecutor,
+                                             seed_cost_from_program)
 from repro_torch.serve.rate_control import (ContentKeyedController,
                                             OperatingPoint, RateController,
                                             RDPoint, build_rd_table,
@@ -54,6 +56,7 @@ __all__ = [
     "priority_depth_limits",
     "GatewayFederation", "GatewayResponse", "MultiTenantGateway",
     "ServingGateway", "TenantRequest", "serve_federated",
+    "MeshExecutor", "seed_cost_from_program",
     "ContentKeyedController", "OperatingPoint",
     "RateController", "RDPoint", "build_rd_table", "codec_revision",
     "load_or_build_rd_table", "rd_grid", "rd_table_from_json",

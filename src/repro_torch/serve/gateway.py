@@ -12,8 +12,8 @@ many concurrent requests (paper Fig. 1 at serving scale):
 
 The gateway runs on ``device`` (``None`` = the card), where the CNN and the
 BaF bank must live; each request's image arrives as numpy and is moved to
-the device once. The mesh executor of the JAX package (its sharded restore)
-is not ported yet.
+the device once. With a :class:`repro_torch.serve.mesh_executor.MeshExecutor`
+the restore and the cloud forward run sharded over its mesh of devices.
 
 All coding state flows through :mod:`repro_torch.pipeline`: the rate
 controller hands back an :class:`OperatingPoint`, the gateway compiles (cached) one
@@ -161,6 +161,13 @@ class ServingGateway:
                 self.executor.metrics = metrics
             if channel is not None:
                 channel.bind_metrics(metrics, tenant="")
+        # a mesh-capable executor (duck-typed on run_sharded) takes restore +
+        # cloud forward through its sharded runner; plain executors run the
+        # whole batch inline here
+        self._run_fn = (self._run_batch_mesh
+                        if callable(getattr(self.executor, "run_sharded",
+                                            None))
+                        else self._run_batch)
         if not shared_executor:
             if self.executor.run_fn is not None:
                 # an exclusively-owned executor binds one gateway's batched
@@ -172,7 +179,7 @@ class ServingGateway:
                                  "gateway; construct one executor per "
                                  "gateway (or build every gateway with "
                                  "shared_executor=True to federate)")
-            self.executor.run_fn = self._run_batch
+            self.executor.run_fn = self._run_fn
         # the CNN's halves, bound once: edge(img) -> z, cloud(z) -> logits
         self._edge_fn, self._cloud_fn = cnn_fns(params)
 
@@ -242,6 +249,19 @@ class ServingGateway:
         decoded = plan.decode_batch([r.blob for r in batch.requests])
         z_tilde = plan.restore(decoded.pad_to(batch.padded_size))
         logits = self._cloud_fn(z_tilde).cpu().numpy()
+        return logits, time.perf_counter() - t0
+
+    def _run_batch_mesh(self, batch: MicroBatch) -> tuple[np.ndarray, float]:
+        """Batched decode on the host, restore + cloud forward on the mesh.
+
+        Same contract as :meth:`_run_batch` (logits rows align with
+        ``batch.requests``, measured wall time), but the device half runs
+        through the executor's ``run_sharded``; the clock stops once the
+        logits are on the host."""
+        plan = self.plan_for(batch.key.op)
+        t0 = time.perf_counter()
+        decoded = plan.decode_batch([r.blob for r in batch.requests])
+        logits = self.executor.run_sharded(plan, decoded, batch.padded_size)
         return logits, time.perf_counter() - t0
 
     def _response_for(self, req: EncodedRequest, ticket: ExecTicket,
@@ -375,7 +395,7 @@ class ServingGateway:
             # immediately, so memory tracks one batch, not the workload
             ticket = self.executor.submit(
                 batch, max(r.t_arrive for r in batch.requests),
-                run_fn=self._run_batch)
+                run_fn=self._run_fn)
             self.executor.on_start(ticket)
             self._record_ticket(ticket, responses, telemetry)
             self.executor.complete(ticket)
@@ -662,7 +682,7 @@ def serve_federated(runs: "list[tuple[MultiTenantGateway, list]]"
         # the loop replays the planned times as events so depth
         # introspection (admission's signal) tracks the virtual clock
         ticket = executor.submit(batch, t_ready,
-                                 run_fn=states[gi].gateway._run_batch)
+                                 run_fn=states[gi].gateway._run_fn)
         push(ticket.t_start, gi, "exec_start", ticket)
         push(ticket.t_done, gi, "exec_done", ticket)
 

@@ -5,8 +5,8 @@ micro-batch is decoded once on the host and restored once at its padded
 size on the gateway's device (one consolidate launch); every head a tenant
 of the batch subscribes to then runs once over the whole restored batch
 (the detect head's attention: one flash launch), and its output is copied
-to the host once. The JAX constructor's refusal of a mesh executor has no
-counterpart: the port has no mesh executor yet.
+to the host once. As in the JAX package, a mesh executor (``run_sharded``)
+is refused: the heads take the restored batch inline.
 
 :class:`MultiTaskGateway` extends the event-driven multi-tenant gateway
 (serve/gateway.py) with the task layer:
@@ -92,6 +92,10 @@ class MultiTaskGateway(MultiTenantGateway):
                  head_cfg: HeadConfig,
                  allocator: BitAllocationController | None = None, **kw):
         super().__init__(params, baf_bank, tenants=tenants, **kw)
+        if self._run_fn == self._run_batch_mesh:
+            raise NotImplementedError(
+                "MultiTaskGateway fans the restored batch out to task heads "
+                "inline; mesh (run_sharded) executors are not supported")
         if not head_bank:
             raise ValueError("empty head bank")
         for name in head_bank:

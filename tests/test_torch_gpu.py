@@ -1233,3 +1233,133 @@ def test_subset_pod_transfer_on_the_card(nccl_mesh, cuda, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(outs[0].cpu(), outs[1], rtol=0,
                                    atol=1e-4 * float(outs[1].abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The sharded cloud tier and the program cost counter
+# ---------------------------------------------------------------------------
+
+def _mesh_system(dev):
+    from repro_torch import pipeline
+    from repro_torch.core.baf import BaFConv, BaFConvConfig
+    from repro_torch.models.cnn import CNN, CNNConfig
+
+    cfg = CNNConfig(width_mult=0.25, input_size=64, num_classes=8,
+                    tail_res_blocks=1)
+    model = CNN(cfg, seed=0, device=dev)
+    baf = BaFConv(BaFConvConfig(c=16, q=cfg.split_q, hidden=16), seed=1,
+                  device=dev)
+    sel = np.random.default_rng(7).permutation(cfg.split_p)[:16]
+    spec = pipeline.ModelSpec(sel_idx=sel, params=model, baf_params=baf)
+    return cfg, pipeline.compile(pipeline.OperatingPoint(c=16, bits=8),
+                                 spec, device=dev)
+
+
+def _decoded(cfg, n):
+    from repro_torch.pipeline.plan import DecodedBatch
+    rng = np.random.default_rng(8)
+    hw = cfg.split_hw
+    return DecodedBatch(
+        codes=rng.integers(0, 256, (n, hw, hw, 16)).astype(np.uint8),
+        mins=(-rng.uniform(1, 2, (n, 1, 1, 16))).astype(np.float16),
+        maxs=rng.uniform(1, 2, (n, 1, 1, 16)).astype(np.float16))
+
+
+@pytest.mark.parametrize("n_data", [1, 2])
+def test_run_sharded_on_the_card(cuda, n_data):
+    """MeshExecutor over data=1 and over two shards of cuda:0: each shard's
+    logits bit-identical to the serial path at its row count (cuDNN
+    deterministic), at data=1 to the serial path at the padded size; one
+    consolidate launch a shard; the logits within 1e-3 of the CPU's (TF32
+    off)."""
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.pipeline.plan import DecodedBatch
+    from repro_torch.serve import LinearCostModel, MeshExecutor
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, plan = _mesh_system(cuda)
+        dec = _decoded(cfg, 6)
+        ex = MeshExecutor(make_dev_mesh(n_data, prefer="data",
+                                        device="cuda:0"),
+                          cost=LinearCostModel())
+        assert ex.mesh.devices_along("data") == [cuda] * n_data
+        before = _build.CONSOLIDATE.launches
+        got = ex.run_sharded(plan, dec, 8)
+        assert _build.CONSOLIDATE.launches - before == n_data
+        assert got.shape == (8, cfg.num_classes) and np.isfinite(got).all()
+        rows = ex.shard_rows(8)
+        padded = dec.pad_to(rows * n_data)
+        for i in range(n_data):
+            part = slice(i * rows, (i + 1) * rows)
+            shard = DecodedBatch(codes=padded.codes[part],
+                                 mins=padded.mins[part],
+                                 maxs=padded.maxs[part])
+            want = plan.spec.params.cloud(plan.restore(shard)).cpu().numpy()
+            assert np.array_equal(got[part], want)
+        assert ex._replicas == {}
+        _, cplan = _mesh_system(torch.device("cpu"))
+        cpu = MeshExecutor(make_dev_mesh(n_data, prefer="data",
+                                         device="cpu")).run_sharded(
+            cplan, dec, 8)
+        np.testing.assert_allclose(got, cpu, rtol=1e-3, atol=1e-3)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+
+def _kernel_calls(dev):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 64, 32), generator=g).to(dev)
+    sel = torch.randperm(32, generator=g)[:8].to(torch.int32).to(dev)
+    codes, mins, maxs = quantize_fused(x, 8, sel)
+    counts = histogram(codes.view(-1, 8), 256)
+    q = torch.randn((1, 64, 4, 16), generator=g).to(dev)
+    kv = torch.randn((1, 64, 2, 16), generator=g).to(dev)
+    ld = -torch.rand((1, 64, 4, 16), generator=g).to(dev)
+    return [lambda: quantize_fused(x, 8, sel),
+            lambda: histogram(codes.view(-1, 8), 256),
+            lambda: cdf(counts.t()),
+            lambda: consolidate_fused(x, codes, mins, maxs, 8, sel),
+            lambda: flash_attention(q, kv, kv, causal=True, window=16),
+            lambda: linear_scan(q, q, q, ld, chunk=16)]
+
+
+def test_kernel_charges_are_the_same_on_the_card_and_the_cpu(cuda):
+    """Each wrapper charges the program counter the same entry whether its
+    kernel (the card) or its plain version (the CPU) runs, and nothing
+    else is counted inside it."""
+    from repro_torch.launch.hlo_cost import analyze_program
+
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        out = []
+        for call in _kernel_calls(dev):
+            est = analyze_program(call)
+            assert len(est["kernels"]) == 1
+            assert set(est["bytes_by_op"]) == {est["kernels"][0]["name"]}
+            out.append(est["kernels"][0])
+        got[dev.type] = out
+    assert [k["name"] for k in got["cuda"]] == [
+        "quantize", "histogram", "cdf", "consolidate", "flash_attention",
+        "linear_scan"]
+    assert got["cuda"] == got["cpu"]
+
+
+def test_mesh_needs_a_card(monkeypatch):
+    """Without a card, the default mesh and the default MeshExecutor raise
+    rather than fall back to the CPU; a CPU mesh is only made on request.
+    Runs anywhere (``torch.cuda.is_available`` patched)."""
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.serve import MeshExecutor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (make_dev_mesh, lambda: make_dev_mesh(prefer="data"),
+                 MeshExecutor):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    mesh = make_dev_mesh(2, prefer="data", device="cpu")
+    assert mesh.devices == (torch.device("cpu"),) * 2
