@@ -10,9 +10,20 @@ the storage of weights every use casts to it) is ``torch.bfloat16`` and
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+# ---------------------------------------------------------------------------
+# Assigned input shapes (identical for every LM arch)
+# ---------------------------------------------------------------------------
+
+SHAPES = {
+    "train_4k":    dict(seq_len=4_096,   global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32_768,  global_batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq_len=32_768,  global_batch=128, kind="decode"),
+    "long_500k":   dict(seq_len=524_288, global_batch=1,   kind="long"),
+}
 
 
 @dataclass(frozen=True)
@@ -82,6 +93,17 @@ class ArchConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def subquadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def supported_shapes(self) -> Tuple[str, ...]:
+        out = ["train_4k", "prefill_32k", "decode_32k"]
+        if self.subquadratic:
+            out.append("long_500k")
+        return tuple(out)
 
     def with_(self, **kw) -> "ArchConfig":
         return replace(self, **kw)

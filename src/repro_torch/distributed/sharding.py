@@ -216,13 +216,17 @@ def cache_pspecs(cache, mesh, batch_axes, *, model_axis="model",
 
 def to_placements(spec, mesh) -> tuple:
     """A spec -> one placement per mesh dim: ``Shard(d)`` where tensor dim
-    d names that mesh axis (alone or in a tuple), else ``Replicate()``."""
+    d names that mesh axis (alone or in a tuple), else ``Replicate()``. An
+    axis of size 1 shards nothing and gives ``Replicate()``, as a
+    ``PartitionSpec`` over it is a no-op (DTensor would refuse to view a
+    dim "sharded" one way)."""
     out = []
-    for axis in mesh.mesh_dim_names:
+    shape = getattr(mesh, "shape", None) or (2,) * len(mesh.mesh_dim_names)
+    for axis, size in zip(mesh.mesh_dim_names, shape):
         dims = [d for d, e in enumerate(spec)
                 if e == axis or (isinstance(e, tuple) and axis in e)]
         if len(dims) > 1:
             raise ValueError(f"mesh axis {axis!r} shards dims {dims} of "
                              f"spec {spec}")
-        out.append(Shard(dims[0]) if dims else Replicate())
+        out.append(Shard(dims[0]) if dims and size > 1 else Replicate())
     return tuple(out)

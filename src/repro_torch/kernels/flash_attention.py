@@ -17,6 +17,16 @@ the same launch and whose backward is :func:`flash_attention_backward`, the
 gradient of the same function in plain torch from the saved q, k, v. The
 JAX package has no backward kernel (no ``custom_vjp`` around its Pallas
 call: XLA differentiates its reference path), so there is none here.
+
+Two more routes serve the cells (``launch.specs``):
+  DTensor  q, k, v are redistributed so that the function is local (batch
+           and heads sharded, sequence and head dim replicated; the kv
+           heads sharded with their query group, or repeated to the query
+           heads first where the mesh axis does not divide both head
+           counts, as the reference repeats them before its sharding
+           constraint), and each rank runs the wrapper on its shards.
+  meta     the wrapper charges its cost (``launch.hlo_cost.charged``) and
+           returns an empty meta output: the dry run runs nothing.
 """
 from __future__ import annotations
 
@@ -25,6 +35,9 @@ import functools
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.api import heads_on_shards
 from repro_torch.kernels import _build
 from repro_torch.launch.hlo_cost import charged
 
@@ -177,7 +190,6 @@ def flash_attention_cost(q, k, v, *, causal: bool = True,
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
 
 
-@charged("flash_attention", flash_attention_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
@@ -187,7 +199,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with Sq > Sk are refused: their first Sq - Sk rows would see no key,
     where the reference gives NaN and the TPU kernel a mean of v. On the
     card, with grad mode on and an input that requires grad, the output
-    carries the gradient of q, k and v."""
+    carries the gradient of q, k and v. DTensors run on their shards; a
+    ``meta`` call returns an empty output after charging its cost."""
+    if isinstance(q, DTensor):
+        return heads_on_shards(
+            lambda a, b, c: _flash_attention(a, b, c, causal=causal,
+                                             window=window), q, k, v)
+    return _flash_attention(q, k, v, causal=causal, window=window)
+
+
+@charged("flash_attention", flash_attention_cost)
+def _flash_attention(q, k, v, *, causal: bool = True,
+                     window: int | None = None) -> torch.Tensor:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, heads, hd)")
     b, sq, h, hd = q.shape
@@ -204,6 +227,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"Sk {sk}: the first rows would see no key")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     if q.dtype not in _ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -19,11 +19,19 @@ q, k, v, the log-decay (summed back to a (B, S, H, 1) decay's shape), the
 bonus and the initial state, with the cotangents of both outputs. The JAX
 package has no backward kernel (XLA differentiates its reference path), so
 there is none here.
+
+DTensor inputs are redistributed so that the scan is local (batch and
+heads sharded; sequence, key, value and state dims replicated) and each
+rank runs the wrapper on its shards. A ``meta`` call charges its cost and
+returns empty meta outputs, for the dry run.
 """
 from __future__ import annotations
 
 import torch
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.distributed.api import on_shards
 from repro_torch.kernels import _build
 from repro_torch.launch.hlo_cost import charged
 
@@ -198,13 +206,49 @@ def linear_scan_cost(q, k, v, log_decay, *, bonus=None, initial_state=None,
     return float(b * h * (s // chunk) * per_chunk), nbytes
 
 
-@charged("linear_scan", linear_scan_cost)
+def _scan_on_shards(q, k, v, log_decay, bonus, initial_state, chunk, mode):
+    """The wrapper on each rank's shards of DTensor inputs."""
+    mesh = q.device_mesh
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    qp = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in q.placements)
+    # (H, dk) bonus: the heads; (B, H, dk, dv) state: the batch and heads
+    bp = tuple(Shard(0) if p == Shard(2) else Replicate() for p in qp)
+    sp = tuple(Shard(1) if p == Shard(2) else p for p in qp)
+
+    def placed(t):      # a plain input (a bonus, a state) is replicated
+        return t if t is None or isinstance(t, DTensor) else \
+            DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+
+    def local(q, k, v, ld, bonus, state):
+        return _linear_scan(q, k, v, ld, bonus=bonus, initial_state=state,
+                            chunk=chunk, mode=mode)
+    inputs = tuple(placed(t) for t in (q, k, v, log_decay, bonus,
+                                       initial_state))
+    return on_shards(local, inputs, (qp, qp, qp, qp, bp, sp), (qp, sp),
+                     ((b, s, h, dv), (b, h, dk, dv)))
+
+
 def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
                 chunk: int = 16, mode: str = "rwkv"):
     """Same contract as :func:`linear_scan_plain`; S must be a multiple of
     ``chunk``. On the card q, k, v are float32 or bf16 of one dtype, and
     with grad mode on and an input that requires grad, y and the final
-    state carry the gradients of every input."""
+    state carry the gradients of every input. DTensors run on their
+    shards; a ``meta`` call returns empty outputs after charging its
+    cost."""
+    if isinstance(q, DTensor):
+        return _scan_on_shards(q, k, v, log_decay, bonus, initial_state,
+                               chunk, mode)
+    return _linear_scan(q, k, v, log_decay, bonus=bonus,
+                        initial_state=initial_state, chunk=chunk, mode=mode)
+
+
+@charged("linear_scan", linear_scan_cost)
+def _linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
+                 chunk: int = 16, mode: str = "rwkv"):
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
             or v.shape[:3] != q.shape[:3]:
         raise ValueError(f"q, k must be (B, S, H, dk) and v (B, S, H, dv); "
@@ -229,6 +273,11 @@ def linear_scan(q, k, v, log_decay, *, bonus=None, initial_state=None,
         return linear_scan_plain(q, k, v, log_decay, bonus=bonus,
                                  initial_state=initial_state, chunk=chunk,
                                  mode=mode)
+    if q.device.type == "meta":
+        return (torch.empty((b, s, h, dv), dtype=torch.float32,
+                            device="meta"),
+                torch.empty((b, h, dk, dv), dtype=torch.float32,
+                            device="meta"))
     if q.device.type != "cuda":
         raise ValueError(f"no linear-scan kernel for device {q.device}")
     if q.dtype not in _ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -20,6 +20,12 @@ Eager code is unrolled, so no trip count scales anything. The reference's
 text parser ``analyze_hlo_text`` has no counterpart: nothing in the port
 produces XLA text.
 
+DTensor programs (the cells of ``launch.specs``) count per device: an op
+on DTensors is passed on to DTensor's dispatch, which runs the local op on
+this process's shards under the counter, and the global-shape shadow ops
+that DTensor's sharding propagation runs on fake tensors are not counted.
+``FlopCounterMode`` would count the DTensor op's global flops instead.
+
 The hand-written kernels are ctypes calls that no dispatch mode sees. Each
 kernel wrapper is decorated with :func:`charged`: while a counter is
 active it records one entry (the kernel's name, its flops and its bytes,
@@ -32,8 +38,11 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import functools
+import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -94,8 +103,11 @@ class ProgramCounter(TorchDispatchMode):
     """The counts of the ops dispatched while it is active (use
     :func:`analyze_program`)."""
 
-    def __init__(self):
+    def __init__(self, *, track_peak: bool = False):
         super().__init__()
+        self.track_peak = track_peak
+        self.live = 0
+        self.peak = 0
         self.flops = 0.0
         self.bytes_by_op: dict[str, float] = {}
         self.collective_bytes: dict[str, float] = {}
@@ -124,8 +136,11 @@ class ProgramCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # count the local ops it runs
         out = func(*args, **kwargs)
-        if self.suspended:
+        if self.suspended or any(isinstance(t, FakeTensor) for t in
+                                 _tensors([args, kwargs, out])):
             return out
         packet = func.overloadpacket
         name = packet.__name__
@@ -139,26 +154,47 @@ class ProgramCounter(TorchDispatchMode):
                                                       out_val=out))
         if func.is_view or name in _FREE:
             return out
+        if self.track_peak:
+            self._track(out)
         read = list(args) + list(kwargs.values())
         if name in _WRITE_ONLY and read:
             read = read[1:]
         self._add_bytes(name, _nbytes(read) + _nbytes(out))
         return out
 
+    def _track(self, out) -> None:
+        """Count each new output's bytes live until its tensor is freed."""
+        for t in _tensors(out):
+            n = t.numel() * t.element_size()
+            if not n:
+                continue
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(t, self._free, n)
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
     def result(self) -> dict:
         by = dict(self.bytes_by_op)
-        return {"flops": self.flops, "bytes": sum(by.values()),
-                "bytes_by_op": by,
-                "collective_bytes": dict(self.collective_bytes),
-                "kernels": list(self.kernels)}
+        res = {"flops": self.flops, "bytes": sum(by.values()),
+               "bytes_by_op": by,
+               "collective_bytes": dict(self.collective_bytes),
+               "kernels": list(self.kernels)}
+        if self.track_peak:
+            res["peak_bytes"] = self.peak
+        return res
 
 
-def analyze_program(fn, *args, **kwargs) -> dict:
+def analyze_program(fn, *args, track_peak: bool = False, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` once and return its counts:
     ``{'flops', 'bytes', 'bytes_by_op', 'collective_bytes', 'kernels'}``
-    (``kernels``: one entry per hand-written kernel call, in order).
-    Per-process quantities: what this process dispatched."""
-    counter = ProgramCounter()
+    (``kernels``: one entry per hand-written kernel call, in order), and
+    with ``track_peak`` ``'peak_bytes'``: the most bytes of op outputs
+    alive at once (an output counts from its op until its tensor is
+    freed; kernel outputs are not seen). Per-process quantities: what
+    this process dispatched."""
+    counter = ProgramCounter(track_peak=track_peak)
     token = _ACTIVE.set(counter)
     try:
         with counter:

@@ -25,7 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.api import current_flash_decode
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.distributed.api import (current_flash_decode,
+                                         heads_on_shards, heads_view,
+                                         shard_hidden, weight, write_slot)
 from repro_torch.distributed.collectives import (axis_group,
                                                  seq_sharded_decode_attention)
 from repro_torch.nn import frozen, normal
@@ -88,16 +92,16 @@ class Attention(nn.Module):
 
 def _project_qkv(p: Attention, x, n_heads, n_kv_heads, head_dim, dtype):
     b, s, _ = x.shape
-    q = x @ p.wq.to(dtype)
-    k = x @ p.wk.to(dtype)
-    v = x @ p.wv.to(dtype)
+    q = x @ weight(p.wq, dtype)
+    k = x @ weight(p.wk, dtype)
+    v = x @ weight(p.wv, dtype)
     if p.qkv_bias:
-        q = q + p.bq.to(dtype)
-        k = k + p.bk.to(dtype)
-        v = v + p.bv.to(dtype)
-    return (q.reshape(b, s, n_heads, head_dim),
-            k.reshape(b, s, n_kv_heads, head_dim),
-            v.reshape(b, s, n_kv_heads, head_dim))
+        q = q + weight(p.bq, dtype)
+        k = k + weight(p.bk, dtype)
+        v = v + weight(p.bv, dtype)
+    return (heads_view(q, (b, s, n_heads, head_dim), n_heads),
+            heads_view(k, (b, s, n_kv_heads, head_dim), n_kv_heads),
+            heads_view(v, (b, s, n_kv_heads, head_dim), n_kv_heads))
 
 
 # ---------------------------------------------------------------------------
@@ -179,15 +183,22 @@ def attention_apply(p: Attention, x, *, n_heads, n_kv_heads, head_dim,
     else:
         src = kv_override
         sk = src.shape[1]
-        q = (x @ p.wq.to(dtype)).reshape(b, s, n_heads, head_dim)
-        k = (src @ p.wk.to(dtype)).reshape(b, sk, n_kv_heads, head_dim)
-        v = (src @ p.wv.to(dtype)).reshape(b, sk, n_kv_heads, head_dim)
+        q = heads_view(x @ weight(p.wq, dtype), (b, s, n_heads, head_dim),
+                       n_heads)
+        k = heads_view(src @ weight(p.wk, dtype),
+                       (b, sk, n_kv_heads, head_dim), n_kv_heads)
+        v = heads_view(src @ weight(p.wv, dtype),
+                       (b, sk, n_kv_heads, head_dim), n_kv_heads)
         causal = False
+    q = shard_hidden(q, "batch", None, "heads", None)
+    k = shard_hidden(k, "batch", None, "heads", None)
+    v = shard_hidden(v, "batch", None, "heads", None)
     if impl == "flash":
         out = flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = blocked_attention(q, k, v, causal=causal, window=window)
-    return out.reshape(b, s, n_heads * head_dim) @ p.wo.to(dtype)
+    return heads_view(out, (b, s, n_heads * head_dim), n_heads) \
+        @ weight(p.wo, dtype)
 
 
 class KVCache(NamedTuple):
@@ -217,6 +228,53 @@ def init_kv_cache(batch, max_len, n_kv_heads, head_dim, dtype=torch.bfloat16,
                    v=torch.zeros(shape, dtype=dtype, device=device), length=0)
 
 
+def decode_softmax(q, k_cache, v_cache, lo: int, hi: int):
+    """One query position against the cache slots [lo, hi): q (B, 1, H,
+    hd), the caches (B, S, KH, hd) -> (B, 1, H, hd) float32, the softmax
+    in float32."""
+    b, _, h, hd = q.shape
+    kh = k_cache.shape[2]
+    keys = k_cache[:, lo:hi].float()
+    vals = v_cache[:, lo:hi].float()
+    qg = q.reshape(b, 1, kh, h // kh, hd).float()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, keys) * softmax_scale(hd)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, vals)
+    return out.reshape(b, 1, h, hd)
+
+
+def _seq_sharded_over(t, axis: str) -> bool:
+    """Is DTensor ``t``'s sequence (dim 1) sharded over ``axis``? An axis
+    of one rank holds the whole sequence: its one shard."""
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names
+    if axis not in names:
+        return False
+    i = names.index(axis)
+    return t.placements[i] == Shard(1) or (mesh.size(i) == 1 and
+                                           t.placements[i].is_replicate())
+
+
+def _seq_sharded_decode_dtensor(q, k, v, cache: KVCache, slot: int, fd):
+    """The flash-decode on DTensors (a cell) whose cache (B, S, K, hd) is
+    sharded on its sequence over ``fd.axis`` (a cache sharded on its kv
+    heads there decodes on its shards without it) and on its batch as the
+    batch is; each rank runs ``seq_sharded_decode_attention`` on its shards,
+    with this token's q, k, v gathered but for the batch. -> out (B, H *
+    hd) float32, batch-sharded as the cache."""
+    mesh = cache.k.device_mesh
+    bp = tuple(p if p == Shard(0) else Replicate()
+               for p in cache.k.placements)
+    q, k, v = (t.redistribute(mesh, bp).to_local() for t in (q, k, v))
+    out, _, _ = seq_sharded_decode_attention(
+        q[:, 0], cache.k.to_local(), cache.v.to_local(), k[:, 0], v[:, 0],
+        slot, mesh, axis=fd.axis)
+    width = q.shape[2] * q.shape[3]
+    return DTensor.from_local(out, mesh, bp, run_check=False,
+                              shape=torch.Size((cache.k.shape[0], width)),
+                              stride=(width, 1))
+
+
 def attention_decode(p: Attention, x, cache: KVCache, *, n_heads, n_kv_heads,
                      head_dim, rope_theta, dtype=None):
     """One-token decode: x (B, 1, D) against ``cache``; returns (y (B, 1, D),
@@ -233,7 +291,8 @@ def attention_decode(p: Attention, x, cache: KVCache, *, n_heads, n_kv_heads,
     slot = cache.length
     pos = cache.start + slot
     fd = current_flash_decode()
-    world = 1 if fd is None else axis_group(fd.mesh, fd.axis)[1]
+    world = 1 if fd is None or isinstance(cache.k, DTensor) else \
+        axis_group(fd.mesh, fd.axis)[1]
     if fd is not None and (cache.window is not None or cache.start):
         raise ValueError("the sequence-sharded decode takes neither a "
                          "window nor a cache that starts past position 0")
@@ -245,22 +304,26 @@ def attention_decode(p: Attention, x, cache: KVCache, *, n_heads, n_kv_heads,
                           torch.arange(pos, pos + 1, device=x.device))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if fd is not None:
+    if fd is not None and isinstance(cache.k, DTensor) and \
+            _seq_sharded_over(cache.k, fd.axis):
+        out = _seq_sharded_decode_dtensor(q, k, v, cache, slot, fd)
+        y = out.to(dtype)[:, None, :] @ weight(p.wo, dtype)
+        return y, cache._replace(length=slot + 1)
+    if fd is not None and not isinstance(cache.k, DTensor):
         out, _, _ = seq_sharded_decode_attention(
             q[:, 0], cache.k, cache.v, k[:, 0], v[:, 0], slot, fd.mesh,
             axis=fd.axis)
-        y = out.to(dtype)[:, None, :] @ p.wo.to(dtype)
+        y = out.to(dtype)[:, None, :] @ weight(p.wo, dtype)
         return y, cache._replace(length=slot + 1)
-    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    write_slot(cache.k, slot, k[:, 0].to(cache.k.dtype))
+    write_slot(cache.v, slot, v[:, 0].to(cache.v.dtype))
     lo = 0 if cache.window is None else max(0, slot + 1 - cache.window)
-    keys = cache.k[:, lo:slot + 1].float()
-    vals = cache.v[:, lo:slot + 1].float()
-    g = n_heads // n_kv_heads
-    qg = q.reshape(b, 1, n_kv_heads, g, head_dim).float()
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, keys) \
-        * softmax_scale(head_dim)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", probs, vals)
-    out = out.reshape(b, 1, n_heads * head_dim).to(dtype)
-    return out @ p.wo.to(dtype), cache._replace(length=slot + 1)
+
+    def softmax_attend(q, keys, vals):
+        return decode_softmax(q, keys, vals, lo, slot + 1)
+    if isinstance(q, DTensor):
+        out = heads_on_shards(softmax_attend, q, cache.k, cache.v)
+    else:
+        out = softmax_attend(q, cache.k, cache.v)
+    out = heads_view(out, (b, 1, n_heads * head_dim), n_heads).to(dtype)
+    return out @ weight(p.wo, dtype), cache._replace(length=slot + 1)

@@ -27,13 +27,15 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.flash_attention import softmax_scale
+from repro_torch.distributed.api import (heads_on_shards, heads_view,
+                                         lookup, shard_hidden, weight)
 from repro_torch.models.attention import (Attention, KVCache,
                                           attention_apply, attention_decode,
-                                          init_kv_cache)
+                                          decode_softmax, init_kv_cache)
 from repro_torch.models.ffn import FFN, ffn_apply
 from repro_torch.models.lm import checkpointed, xent_loss
 from repro_torch.nn import LayerNorm, frozen, normal, seeded
@@ -118,8 +120,10 @@ def encode(model: EncDec, audio_embeds, *, attention: str = "flash"):
 
     def block(lp, x):
         x = x + _attn(cfg, lp.attn, lp.ln1(x), causal=False, impl=attention)
-        return x + ffn_apply(lp.ffn, lp.ln2(x), dtype=cfg.dtype)
-    x = _blocks(block, model.enc_layers, audio_embeds.to(cfg.dtype))
+        x = x + ffn_apply(lp.ffn, lp.ln2(x), dtype=cfg.dtype)
+        return shard_hidden(x, "batch", None, "act_hidden")
+    x = shard_hidden(audio_embeds.to(cfg.dtype), "batch", None, "act_hidden")
+    x = _blocks(block, model.enc_layers, x)
     return model.enc_norm(x)
 
 
@@ -137,10 +141,13 @@ def decode_train(model: EncDec, tokens, enc_out, *, attention: str = "flash"):
         x = x + _attn(cfg, lp.attn, lp.ln1(x), causal=True, impl=attention)
         x = x + _attn(cfg, lp.xattn, lp.ln_x(x), kv_override=enc_out,
                       impl=attention)
-        return x + ffn_apply(lp.ffn, lp.ln2(x), dtype=dtype)
-    x = model.dec_embed[tokens].to(dtype) + pos[:s][None].to(dtype)
+        x = x + ffn_apply(lp.ffn, lp.ln2(x), dtype=dtype)
+        return shard_hidden(x, "batch", None, "act_hidden")
+    x = lookup(model.dec_embed, tokens).to(dtype) + pos[:s][None].to(dtype)
+    x = shard_hidden(x, "batch", None, "act_hidden")
     x = model.dec_norm(_blocks(block, model.dec_layers, x))
-    return x @ model.dec_embed.t().to(dtype)
+    logits = x @ model.dec_embed.t().to(dtype)
+    return shard_hidden(logits, "batch", None, "vocab")
 
 
 def encdec_loss(model: EncDec, batch: dict, *, attention: str = "flash"):
@@ -173,13 +180,14 @@ def init_encdec_cache(model: EncDec, enc_out, max_len: int) -> EncDecCache:
     src = enc_out.to(dtype)
     cross_k, cross_v = [], []
     for lp in model.dec_layers:
-        k = src @ lp.xattn.wk.to(dtype)
-        v = src @ lp.xattn.wv.to(dtype)
+        k = src @ weight(lp.xattn.wk, dtype)
+        v = src @ weight(lp.xattn.wv, dtype)
         if lp.xattn.qkv_bias:
-            k = k + lp.xattn.bk.to(dtype)
-            v = v + lp.xattn.bv.to(dtype)
-        cross_k.append(k.reshape(b, s, cfg.n_kv_heads, cfg.hd))
-        cross_v.append(v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
+            k = k + weight(lp.xattn.bk, dtype)
+            v = v + weight(lp.xattn.bv, dtype)
+        shape = (b, s, cfg.n_kv_heads, cfg.hd)
+        cross_k.append(heads_view(k, shape, cfg.n_kv_heads))
+        cross_v.append(heads_view(v, shape, cfg.n_kv_heads))
     self_kv = [init_kv_cache(b, max_len, cfg.n_kv_heads, cfg.hd, dtype,
                              device=enc_out.device)
                for _ in model.dec_layers]
@@ -195,8 +203,10 @@ def encdec_decode_step(model: EncDec, cache: EncDecCache, token):
     dtype = cfg.dtype
     b = token.shape[0]
     hd, kh = cfg.hd, cfg.n_kv_heads
-    g = cfg.n_heads // kh
-    x = model.dec_embed[token].to(dtype) \
+
+    def cross(q, ck, cv):
+        return decode_softmax(q, ck, cv, 0, ck.shape[1])
+    x = lookup(model.dec_embed, token).to(dtype) \
         + model.dec_pos[cache.pos % model.dec_pos.shape[0]].to(dtype)
     new_kv = []
     for lp, kv, ck, cv in zip(model.dec_layers, cache.self_kv, cache.cross_k,
@@ -208,16 +218,16 @@ def encdec_decode_step(model: EncDec, cache: EncDecCache, token):
         new_kv.append(kv)
         x = x + h[:, 0]
         # cross-attention against the precomputed K/V (no cache update)
-        q = lp.ln_x(x[:, None, :]) @ lp.xattn.wq.to(dtype)
+        q = lp.ln_x(x[:, None, :]) @ weight(lp.xattn.wq, dtype)
         if lp.xattn.qkv_bias:
-            q = q + lp.xattn.bq.to(dtype)
-        qg = q.reshape(b, 1, kh, g, hd).float()
-        sc = torch.einsum("bqkgh,bskh->bkgqs", qg, ck.float()) \
-            * softmax_scale(hd)
-        pr = torch.softmax(sc, dim=-1)
-        hx = torch.einsum("bkgqs,bskh->bqkgh", pr, cv.float())
-        hx = hx.reshape(b, 1, cfg.n_heads * hd).to(dtype) \
-            @ lp.xattn.wo.to(dtype)
+            q = q + weight(lp.xattn.bq, dtype)
+        q = heads_view(q, (b, 1, cfg.n_heads, hd), cfg.n_heads)
+        if isinstance(q, DTensor):
+            hx = heads_on_shards(cross, q, ck, cv)
+        else:
+            hx = cross(q, ck, cv)
+        hx = heads_view(hx, (b, 1, cfg.n_heads * hd), cfg.n_heads) \
+            .to(dtype) @ weight(lp.xattn.wo, dtype)
         x = x + hx[:, 0]
         x = x + ffn_apply(lp.ffn, lp.ln2(x[:, None, :]), dtype=dtype)[:, 0]
     x = model.dec_norm(x[:, None, :])

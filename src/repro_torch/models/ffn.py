@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.api import shard_hidden, weight
 from repro_torch.nn import frozen, normal, squared_relu
 
 ACTS = ("swiglu", "gelu", "sq_relu")
@@ -28,11 +29,14 @@ class FFN(nn.Module):
 
 def ffn_apply(p: FFN, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
     dtype = dtype or x.dtype
-    up = x @ p.wup.to(dtype)
+    up = x @ weight(p.wup, dtype)
+    up = shard_hidden(up, "batch", None, "ffn")
     if p.act == "swiglu":
-        h = F.silu(x @ p.wgate.to(dtype)) * up
+        gate = x @ weight(p.wgate, dtype)
+        gate = shard_hidden(gate, "batch", None, "ffn")
+        h = F.silu(gate) * up
     elif p.act == "gelu":
         h = F.gelu(up, approximate="tanh")
     else:
         h = squared_relu(up)
-    return h @ p.wdown.to(dtype)
+    return h @ weight(p.wdown, dtype)

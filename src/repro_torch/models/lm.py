@@ -34,11 +34,16 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.api import (lookup, products_summed,
+                                         shard_hidden, weight,
+                                         with_summed_products)
 from repro_torch.nn import LayerNorm, RMSNorm, frozen, normal, seeded
 from repro_torch.models.attention import (Attention, KVCache,
                                           attention_apply, attention_decode,
@@ -163,7 +168,7 @@ def _attn_ffn_block(lp: AttnBlock, x, cfg: ArchConfig, *, window=None,
         y, aux = moe_apply(lp.moe, xn, cfg.moe, dtype=dtype, routes=routes)
     else:
         y, aux = ffn_apply(lp.ffn, xn, dtype=dtype), 0.0
-    return x + y, aux
+    return shard_hidden(x + y, "batch", None, "act_hidden"), aux
 
 
 REMAT_POLICIES = ("full", "dots", "dots_no_batch")
@@ -196,6 +201,10 @@ def checkpointed(fn, policy: str = "full"):
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts,
             functools.partial(_saved_by, _SAVED_OPS[policy]))
+    if products_summed():
+        # in a cell: the recompute sums its products as the forward did
+        kw["context_fn"] = functools.partial(
+            with_summed_products, kw.get("context_fn", noop_context_fn))
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
@@ -203,12 +212,14 @@ def _layer_block(lp, x, cfg: ArchConfig, *, window, dtype, attention,
                  routes):
     """One layer of the stack -> (y, aux)."""
     if cfg.family == "ssm":
-        return rwkv6_block(lp, x, head_dim=cfg.ssm.head_dim,
-                           chunk=cfg.ssm.chunk, dtype=dtype), 0.0
+        y = rwkv6_block(lp, x, head_dim=cfg.ssm.head_dim,
+                        chunk=cfg.ssm.chunk, dtype=dtype)
+        return shard_hidden(y, "batch", None, "act_hidden"), 0.0
     if cfg.family == "hybrid":
-        return mamba2_block(lp, x, state_dim=cfg.ssm.state_dim,
-                            head_dim=cfg.ssm.head_dim, expand=cfg.ssm.expand,
-                            chunk=cfg.ssm.chunk, dtype=dtype), 0.0
+        y = mamba2_block(lp, x, state_dim=cfg.ssm.state_dim,
+                         head_dim=cfg.ssm.head_dim, expand=cfg.ssm.expand,
+                         chunk=cfg.ssm.chunk, dtype=dtype)
+        return shard_hidden(y, "batch", None, "act_hidden"), 0.0
     return _attn_ffn_block(lp, x, cfg, window=window, dtype=dtype,
                            attention=attention, routes=routes)
 
@@ -226,7 +237,9 @@ def lm_hidden(model: LM, *, tokens=None, embeds=None, window=None,
     with ``remat_policy``."""
     cfg = model.cfg
     dtype = cfg.dtype
-    x = model.embed[tokens].to(dtype) if embeds is None else embeds.to(dtype)
+    x = lookup(model.embed, tokens).to(dtype) if embeds is None \
+        else embeds.to(dtype)
+    x = shard_hidden(x, "batch", None, "act_hidden")
     remat = remat and torch.is_grad_enabled() and routes is None
     wrap = functools.partial(checkpointed, policy=remat_policy) if remat \
         else (lambda fn: fn)
@@ -249,7 +262,8 @@ def lm_hidden(model: LM, *, tokens=None, embeds=None, window=None,
 
 def lm_logits(model: LM, hidden: torch.Tensor) -> torch.Tensor:
     w = model.embed.t() if model.lm_head is None else model.lm_head
-    return hidden @ w.to(model.cfg.dtype)
+    logits = hidden @ weight(w, model.cfg.dtype)
+    return shard_hidden(logits, "batch", None, "vocab")
 
 
 def lm_forward(model: LM, *, tokens=None, embeds=None, window=None,
@@ -267,6 +281,11 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy in float32: logsumexp minus the gold logit."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
+    if isinstance(logits, DTensor):
+        # DTensor's gather on a vocab-sharded dim fails in its mask
+        # buffer: the gold logit is read from logits whole over the vocab
+        logits = logits.redistribute(logits.device_mesh, tuple(
+            Replicate() if p == Shard(2) else p for p in logits.placements))
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (logz - gold).mean()
 
@@ -354,7 +373,8 @@ def lm_decode_step(model: LM, cache: DecodeCache, token, embeds=None,
     gets each MoE layer's ``moe.Routing`` (one group of B tokens)."""
     cfg = model.cfg
     dtype = cfg.dtype
-    x = model.embed[token].to(dtype) if embeds is None else embeds.to(dtype)
+    x = lookup(model.embed, token).to(dtype) if embeds is None \
+        else embeds.to(dtype)
     if cfg.family == "ssm":
         states = []
         for lp, st in zip(model.layers, cache.rwkv):

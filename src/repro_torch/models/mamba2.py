@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.api import heads_view, shard_hidden, weight
 from repro_torch.nn import RMSNorm, frozen, normal
 from repro_torch.models.linear_attention import (chunked_linear_attention,
                                                  linear_attention_step)
@@ -80,7 +81,7 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _split_proj(p: Mamba2Block, xn, d_model, state_dim, expand, dtype):
     d_inner = expand * d_model
-    proj = xn @ p.in_proj.to(dtype)
+    proj = xn @ weight(p.in_proj, dtype)
     z, xbc, dt = torch.split(
         proj, [d_inner, d_inner + 2 * state_dim,
                proj.shape[-1] - 2 * d_inner - 2 * state_dim], dim=-1)
@@ -111,9 +112,10 @@ def _mamba2_seq(p: Mamba2Block, x, *, state_dim, head_dim, expand, chunk,
                                            carry=conv_carry)
     xs, bmat, cmat = torch.split(xbc, [d_inner, state_dim, state_dim],
                                  dim=-1)
+    xs = shard_hidden(xs, "batch", None, "ffn")
     dt = _softplus(dt.float() + p.dt_bias.float())           # (B, S, H)
     log_decay = -_softplus(p.A_log.float()) * dt
-    xh = xs.reshape(b, s, n_heads, head_dim)
+    xh = heads_view(xs, (b, s, n_heads, head_dim), n_heads)
     v = (xh.float() * dt[..., None]).to(dtype)
     # B and C are shared across the heads (one group): broadcast
     k = bmat[:, :, None, :].expand(b, s, n_heads, state_dim)
@@ -121,9 +123,9 @@ def _mamba2_seq(p: Mamba2Block, x, *, state_dim, head_dim, expand, chunk,
     y, state = chunked_linear_attention(
         q, k, v, log_decay[..., None], chunk=chunk, mode="ssm",
         per_channel=False, initial_state=initial_state)
-    y = y.to(dtype) + p.D.to(dtype)[None, None, :, None] * xh
-    y = p.gate_norm(y.reshape(b, s, d_inner)) * F.silu(z)
-    return x + y @ p.out_proj.to(dtype), state, new_conv
+    y = y.to(dtype) + weight(p.D, dtype)[None, None, :, None] * xh
+    y = p.gate_norm(heads_view(y, (b, s, d_inner), n_heads)) * F.silu(z)
+    return x + y @ weight(p.out_proj, dtype), state, new_conv
 
 
 def mamba2_block(p: Mamba2Block, x, *, state_dim: int = 64,
@@ -170,7 +172,7 @@ def mamba2_block_step(p: Mamba2Block, x, state: Mamba2State, *,
     q = cmat[:, None, :].expand(b, n_heads, state_dim)
     y, new_ssm = linear_attention_step(q, k, v, log_decay[..., None],
                                        state.ssm, mode="ssm")
-    y = y.to(dtype) + p.D.to(dtype)[None, :, None] * xh
+    y = y.to(dtype) + weight(p.D, dtype)[None, :, None] * xh
     y = p.gate_norm(y.reshape(b, d_inner)) * F.silu(z[:, 0])
-    return x + y @ p.out_proj.to(dtype), Mamba2State(ssm=new_ssm,
+    return x + y @ weight(p.out_proj, dtype), Mamba2State(ssm=new_ssm,
                                                      conv=new_conv)

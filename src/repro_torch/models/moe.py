@@ -25,13 +25,17 @@ beside the experts on the same input. Weights in the JAX (in, out) layout.
 """
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed.api import on_shards, shard_hidden
 from repro_torch.models.ffn import FFN, ffn_apply
 from repro_torch.nn import frozen, normal, squared_relu
 
@@ -113,13 +117,59 @@ def _experts(p: MoE, xe: torch.Tensor, dtype) -> torch.Tensor:
     return torch.bmm(h, p.wdown.to(dtype))
 
 
+def _local_params(p, names: list, leaves) -> SimpleNamespace:
+    """``p``'s attributes with its parameters replaced by ``leaves``."""
+    by = dict(zip(names, leaves))
+    sub = {}
+    for name in [n for n in names if "." in n]:
+        mod, leaf = name.split(".", 1)
+        sub.setdefault(mod, {})[leaf] = by.pop(name)
+    ns = SimpleNamespace(act=p.act, **by)
+    if getattr(p, "dense", None) is not None:
+        ns.dense = SimpleNamespace(act=p.dense.act, **sub["dense"])
+    elif hasattr(p, "dense"):
+        ns.dense = None
+    return ns
+
+
+def _moe_on_shards(p: MoE, x, mcfg: MoEConfig, dtype, routes):
+    """``moe_apply`` on each rank's rows of a DTensor ``x``: the groups
+    (rows) stay sharded over the batch axes, everything else is gathered,
+    the experts' weights whole. A row routes alone, so each rank's groups
+    route as they would in one process -> (y, the balance loss of each
+    group)."""
+    mesh = x.device_mesh
+    xp = tuple(q if q == Shard(0) else Replicate() for q in x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    names = [n for n, _ in p.named_parameters()]
+    leaves = [functools.reduce(getattr, n.split("."), p) for n in names]
+
+    def local(xl, *ws):
+        return _moe_groups(_local_params(p, names, ws), xl, mcfg, dtype,
+                           routes)
+    # the balance loss a group, sharded with the groups
+    return on_shards(local, (x, *leaves), (xp,) + (whole,) * len(leaves),
+                     (xp, xp), (x.shape, (x.shape[0],)))
+
+
 def moe_apply(p: MoE, x: torch.Tensor, mcfg: MoEConfig, *, dtype=None,
               routes: list | None = None):
     """x (B, S, D): each batch row is a routing group -> (y (B, S, D), aux:
     the balance loss averaged over the groups). Arctic adds the dense
     residual FFN over the same input. ``routes``, when given, gets the
-    groups' ``Routing``."""
+    groups' ``Routing``. A DTensor ``x`` runs each rank's rows on their
+    own (``_moe_on_shards``)."""
     dtype = dtype or x.dtype
+    if isinstance(x, DTensor):
+        y, aux = _moe_on_shards(p, x, mcfg, dtype, routes)
+        return shard_hidden(y, "batch", None, None), aux.mean()
+    y, aux = _moe_groups(p, x, mcfg, dtype, routes)
+    return y, aux.mean()
+
+
+def _moe_groups(p: MoE, x, mcfg: MoEConfig, dtype, routes):
+    """``moe_apply`` on plain tensors -> (y, the balance loss of each
+    group (G,))."""
     g, t, d = x.shape
     e = mcfg.num_experts
     r = route(x, p.router, mcfg, dtype)
@@ -137,5 +187,4 @@ def moe_apply(p: MoE, x: torch.Tensor, mcfg: MoEConfig, *, dtype=None,
     if p.dense is not None:
         y = y + ffn_apply(p.dense, x, dtype=dtype)
     frac_tokens = F.one_hot(r.top_e[..., 0], e).float().mean(dim=1)
-    aux = e * (frac_tokens * r.probs.mean(dim=1)).sum(-1)
-    return y, aux.mean()
+    return y, e * (frac_tokens * r.probs.mean(dim=1)).sum(-1)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.api import heads_view, shard_hidden, weight
 from repro_torch.nn import LayerNorm, frozen, normal
 from repro_torch.models.linear_attention import (chunked_linear_attention,
                                                  linear_attention_step)
@@ -75,37 +76,41 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor | None = None):
 
 def _ddlerp(p: RWKV6Block, x, dx, dtype):
     """Data-dependent lerp: the five mixed inputs (r, k, v, g, w)."""
-    xxx = x + dx * p.mu_x.to(dtype)
-    lora = torch.tanh(xxx @ p.mix_w1.to(dtype))
+    xxx = x + dx * weight(p.mu_x, dtype)
+    lora = torch.tanh(xxx @ weight(p.mix_w1, dtype))
     b, s, _ = x.shape
-    lora = lora.reshape(b, s, N_MIX, -1)
-    mus = p.mu_base.to(dtype) + torch.einsum("bsfr,frd->bsfd", lora,
-                                             p.mix_w2.to(dtype))
+    lora = heads_view(lora, (b, s, N_MIX, -1), N_MIX)
+    mus = weight(p.mu_base, dtype) + torch.einsum(
+        "bsfr,frd->bsfd", lora, weight(p.mix_w2, dtype))
     return [x + dx * mus[:, :, i, :] for i in range(N_MIX)]
 
 
 def _time_mix_qkvgw(p: RWKV6Block, x, dx, n_heads, head_dim, dtype):
     b, s, _ = x.shape
     xr, xk, xv, xg, xw = _ddlerp(p, x, dx, dtype)
-    r = (xr @ p.wr.to(dtype)).reshape(b, s, n_heads, head_dim)
-    k = (xk @ p.wk.to(dtype)).reshape(b, s, n_heads, head_dim)
-    v = (xv @ p.wv.to(dtype)).reshape(b, s, n_heads, head_dim)
-    g = F.silu(xg @ p.wg.to(dtype))
-    dd = torch.tanh(xw @ p.wd_a.to(dtype)) @ p.wd_b.to(dtype)
+    shape = (b, s, n_heads, head_dim)
+    r = heads_view(xr @ weight(p.wr, dtype), shape, n_heads)
+    k = heads_view(xk @ weight(p.wk, dtype), shape, n_heads)
+    v = heads_view(xv @ weight(p.wv, dtype), shape, n_heads)
+    g = F.silu(xg @ weight(p.wg, dtype))
+    dd = torch.tanh(xw @ weight(p.wd_a, dtype)) @ weight(p.wd_b, dtype)
     log_decay = -torch.exp(p.w0.to(torch.float32) + dd.to(torch.float32))
-    return r, k, v, g, log_decay.reshape(b, s, n_heads, head_dim)
+    return r, k, v, g, heads_view(log_decay, shape, n_heads)
 
 
 def _time_mix_out(p: RWKV6Block, wkv, g, b, s, d, dtype):
-    y = p.ln_x(wkv.reshape(b, s, d).to(dtype))
-    return (y * g) @ p.wo.to(dtype)
+    y = p.ln_x(heads_view(wkv, (b, s, d), wkv.shape[2]).to(dtype))
+    return (y * g) @ weight(p.wo, dtype)
 
 
-def _channel_mix(p: RWKV6Block, xn, dx, dtype):
-    xk = xn + dx * p.cm_mu_k.to(dtype)
-    xr = xn + dx * p.cm_mu_r.to(dtype)
-    kv = torch.relu(xk @ p.cm_wk.to(dtype)).square() @ p.cm_wv.to(dtype)
-    return torch.sigmoid(xr @ p.cm_wr.to(dtype)) * kv
+def _channel_mix(p: RWKV6Block, xn, dx, dtype, *, seq: bool = False):
+    xk = xn + dx * weight(p.cm_mu_k, dtype)
+    xr = xn + dx * weight(p.cm_mu_r, dtype)
+    kv = torch.relu(xk @ weight(p.cm_wk, dtype)).square()
+    if seq:
+        kv = shard_hidden(kv, "batch", None, "ffn")
+    kv = kv @ weight(p.cm_wv, dtype)
+    return torch.sigmoid(xr @ weight(p.cm_wr, dtype)) * kv
 
 
 def rwkv6_time_mix(p: RWKV6Block, x, *, head_dim: int, chunk: int = 16,
@@ -122,7 +127,7 @@ def rwkv6_time_mix(p: RWKV6Block, x, *, head_dim: int, chunk: int = 16,
 
 def rwkv6_channel_mix(p: RWKV6Block, x, *, dtype=None):
     dtype = dtype or x.dtype
-    return _channel_mix(p, x, _token_shift(x) - x, dtype)
+    return _channel_mix(p, x, _token_shift(x) - x, dtype, seq=True)
 
 
 def rwkv6_block(p: RWKV6Block, x, *, head_dim: int, chunk: int = 16,

@@ -21,9 +21,12 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.api import (heads_on_shards, heads_view,
+                                         lookup, shard_hidden, weight)
 from repro_torch.kernels.flash_attention import softmax_scale
 from repro_torch.models.attention import KVCache, apply_rope, rope_freqs
 from repro_torch.models.encdec import decode_train, encdec_decode_step, encode
@@ -116,11 +119,11 @@ def _shared_attn_windowed(lp: AttnBlock, cfg: ArchConfig, x, prev_k, prev_v,
     dtype = cfg.dtype
     b, w, _ = x.shape
     kh, hd = cfg.n_kv_heads, cfg.hd
-    g = cfg.n_heads // kh
     xn = lp.ln1(x)
-    q = (xn @ lp.attn.wq.to(dtype)).reshape(b, w, cfg.n_heads, hd)
-    k = (xn @ lp.attn.wk.to(dtype)).reshape(b, w, kh, hd)
-    v = (xn @ lp.attn.wv.to(dtype)).reshape(b, w, kh, hd)
+    q = heads_view(xn @ weight(lp.attn.wq, dtype), (b, w, cfg.n_heads, hd),
+                   cfg.n_heads)
+    k = heads_view(xn @ weight(lp.attn.wk, dtype), (b, w, kh, hd), kh)
+    v = heads_view(xn @ weight(lp.attn.wv, dtype), (b, w, kh, hd), kh)
     cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
     q = apply_rope(q, cos[None], sin[None])
     k = apply_rope(k, cos[None], sin[None])
@@ -131,21 +134,29 @@ def _shared_attn_windowed(lp: AttnBlock, cfg: ArchConfig, x, prev_k, prev_v,
     mask = (kpos <= qpos) & (kpos > qpos - w)
     if first_block:
         mask = mask & (kpos >= w)
-    qg = q.reshape(b, w, kh, g, hd)
-    out = torch.empty((b, w, kh, g, hd), dtype=torch.float32,
-                      device=x.device)
-    for h0 in range(0, kh, SHARED_ATTN_KV_HEADS):
-        hs = slice(h0, h0 + SHARED_ATTN_KV_HEADS)
-        scores = torch.einsum("bqkgh,bskh->bkgqs", qg[:, :, hs].float(),
-                              k2[:, :, hs].float()) * softmax_scale(hd)
-        scores = scores.masked_fill(~mask, float("-inf"))
-        probs = torch.softmax(scores, dim=-1)
-        del scores
-        out[:, :, hs] = torch.einsum("bkgqs,bskh->bqkgh", probs,
-                                     v2[:, :, hs].float())
-        del probs
-    out = out.reshape(b, w, cfg.n_heads * hd).to(dtype)
-    x = x + out @ lp.attn.wo.to(dtype)
+
+    def attend(q, k2, v2):
+        b, h, kh = q.shape[0], q.shape[2], k2.shape[2]
+        qg = q.reshape(b, w, kh, h // kh, hd)
+        out = torch.empty((b, w, kh, h // kh, hd), dtype=torch.float32,
+                          device=q.device)
+        for h0 in range(0, kh, SHARED_ATTN_KV_HEADS):
+            hs = slice(h0, h0 + SHARED_ATTN_KV_HEADS)
+            scores = torch.einsum("bqkgh,bskh->bkgqs", qg[:, :, hs].float(),
+                                  k2[:, :, hs].float()) * softmax_scale(hd)
+            scores = scores.masked_fill(~mask, float("-inf"))
+            probs = torch.softmax(scores, dim=-1)
+            del scores
+            out[:, :, hs] = torch.einsum("bkgqs,bskh->bqkgh", probs,
+                                         v2[:, :, hs].float())
+            del probs
+        return out.reshape(b, w, h, hd)
+    if isinstance(q, DTensor):
+        out = heads_on_shards(attend, q, k2, v2)
+    else:
+        out = attend(q, k2, v2)
+    out = heads_view(out, (b, w, cfg.n_heads * hd), cfg.n_heads).to(dtype)
+    x = x + out @ weight(lp.attn.wo, dtype)
     x = x + ffn_apply(lp.ffn, lp.ln2(x), dtype=dtype)
     return x, k, v
 
@@ -165,7 +176,9 @@ def make_long_ingest(cfg: ArchConfig, *, block: int = 8192):
         st = init_long_state(cfg, b, block, device=model.device)
         states, sk, sv = st.layer_states, st.shared_k, st.shared_v
         for i in range(s // block):
-            x = model.embed[tokens[:, i * block:(i + 1) * block]].to(cfg.dtype)
+            x = lookup(model.embed,
+                       tokens[:, i * block:(i + 1) * block]).to(cfg.dtype)
+            x = shard_hidden(x, "batch", None, "act_hidden")
             if cfg.family == "ssm":
                 states = [None] * cfg.n_layers
                 for j, (lp, lst) in enumerate(zip(model.layers,

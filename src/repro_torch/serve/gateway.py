@@ -245,10 +245,13 @@ class ServingGateway:
         clock otherwise).
         """
         plan = self.plan_for(batch.key.op)
+        # repro_torch: allow[RA01] -- warm-timing helper: measures real
+        # compute wall for the cost model, never replayed state
         t0 = time.perf_counter()
         decoded = plan.decode_batch([r.blob for r in batch.requests])
         z_tilde = plan.restore(decoded.pad_to(batch.padded_size))
         logits = self._cloud_fn(z_tilde).cpu().numpy()
+        # repro_torch: allow[RA01] -- warm-timing helper (see t0 above)
         return logits, time.perf_counter() - t0
 
     def _run_batch_mesh(self, batch: MicroBatch) -> tuple[np.ndarray, float]:
@@ -259,9 +262,12 @@ class ServingGateway:
         through the executor's ``run_sharded``; the clock stops once the
         logits are on the host."""
         plan = self.plan_for(batch.key.op)
+        # repro_torch: allow[RA01] -- warm-timing helper: measures real
+        # compute wall for the cost model, never replayed state
         t0 = time.perf_counter()
         decoded = plan.decode_batch([r.blob for r in batch.requests])
         logits = self.executor.run_sharded(plan, decoded, batch.padded_size)
+        # repro_torch: allow[RA01] -- warm-timing helper (see t0 above)
         return logits, time.perf_counter() - t0
 
     def _response_for(self, req: EncodedRequest, ticket: ExecTicket,

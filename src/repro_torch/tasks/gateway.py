@@ -145,6 +145,8 @@ class MultiTaskGateway(MultiTenantGateway):
         clock stops after the last head's output is copied to the host,
         which waits for the card."""
         plan = self.plan_for(batch.key.op)
+        # repro_torch: allow[RA01] -- warm-timing helper: measures real
+        # compute wall for the cost model, never replayed state
         t0 = time.perf_counter()
         decoded = plan.decode_batch([r.blob for r in batch.requests])
         z_tilde = plan.restore(decoded.pad_to(batch.padded_size))
@@ -155,6 +157,7 @@ class MultiTaskGateway(MultiTenantGateway):
         self.decode_calls += 1
         for task in needed:
             self.head_calls[task] = self.head_calls.get(task, 0) + 1
+        # repro_torch: allow[RA01] -- warm-timing helper (see t0 above)
         return outputs, time.perf_counter() - t0
 
     # -- response fan-out ---------------------------------------------------

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.api import axis_ctx, train_rules
@@ -124,13 +125,31 @@ class _LossAndGrads(nn.Module):
         return loss.detach(), grads
 
 
+def _chunk(v, n: int, i: int):
+    """Rows i/n of ``v``; of a DTensor sharded on its batch, the i-th n-th
+    of each rank's rows (the same rows in another grouping: the loss and
+    gradient sums over the microbatches do not change, and no rows move
+    between ranks). A rank's rows must split n ways."""
+    if isinstance(v, DTensor) and Shard(0) in v.placements:
+        rows = v.to_local().shape[0]
+        if rows % n:
+            raise ValueError(f"{rows} rows a rank do not split into {n} "
+                             f"microbatches")
+        loc = v.to_local().chunk(n)[i]
+        shape = (v.shape[0] // n,) + tuple(v.shape[1:])
+        return DTensor.from_local(loc, v.device_mesh, v.placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=loc.stride())
+    return v.chunk(n)[i]
+
+
 def _microbatches(batch: dict, n: int) -> list[dict]:
     """(B, ...) leaves -> n dicts of (B / n, ...) rows, in order."""
     for k, v in batch.items():
         if v.shape[0] % n:
             raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not a "
                              f"multiple of {n} microbatches")
-    return [{k: v.chunk(n)[i] for k, v in batch.items()} for i in range(n)]
+    return [{k: _chunk(v, n, i) for k, v in batch.items()} for i in range(n)]
 
 
 def make_grads_fn(cfg: ArchConfig, tcfg: TrainConfig):

@@ -81,8 +81,10 @@ def test_flash_wrapper_validates():
     with pytest.raises(ValueError, match="Sq <= Sk"):
         flash_attention(q, q[:, :5], q[:, :5], causal=True)
     assert flash_attention(q, q[:, :5], q[:, :5], causal=False).shape == q.shape
-    with pytest.raises(ValueError, match="no flash-attention kernel"):
-        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    # meta (the dry run): an empty output of q's shape and dtype
+    out = flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape \
+        and out.dtype == q.dtype
 
 
 def test_rope_matches_jax():

@@ -77,7 +77,12 @@ def test_port_imports_nothing_of_jax_or_repro():
                  "repro_torch.configs.whisper_tiny",
                  "repro_torch.distributed.pipeline",
                  "repro_torch.optim.grad_compress",
-                 "repro_torch.launch.pod_boundary"):
+                 "repro_torch.launch.pod_boundary",
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                 "repro_torch.analysis", "repro_torch.analysis.engine",
+                 "repro_torch.analysis.rules", "repro_torch.analysis.wire",
+                 "repro_torch.analysis.fixes",
+                 "repro_torch.analysis.sanitizer"):
         assert name in res["modules"]
 
 

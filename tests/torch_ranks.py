@@ -194,3 +194,104 @@ def multipod_rank(rank, mesh, runs, params_file):
             losses.append(float(m["loss"]))
         out.append(dict(losses=losses, params=state.params, ef=state.ef))
     return out
+
+
+def _gathered(tree):
+    """``tree`` with every DTensor leaf replaced by its whole tensor."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_gathered(v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_gathered(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _gathered(v) for k, v in tree.items()}
+    return tree
+
+
+def cell_args(cell, params, inputs) -> tuple:
+    """``cell``'s arguments from JAX ``init_lm``/``init_encdec`` params
+    (numpy leaves, carried across by ``bridge.master_from_jax``) and numpy
+    ``inputs``: a train state on the float32 masters, serving weights in
+    the cell's dtypes, the batch cast to its specs' dtypes, empty caches
+    (whisper's cross K/V from ``inputs["enc"]``)."""
+    from repro_torch.bridge import encdec_from_jax, master_from_jax
+    from repro_torch.launch.specs import _cache_len
+    from repro_torch.models.encdec import init_encdec_cache
+    from repro_torch.models.lm import init_decode_cache
+    from repro_torch.train.trainer import init_train_state
+    cfg, args = cell.cfg, cell.args
+    master = master_from_jax(params, cfg, device="cpu")
+
+    def batch(spec: dict) -> dict:
+        return {k: torch.from_numpy(inputs[k]).to(v.dtype)
+                for k, v in spec.items()}
+    if cell.kind == "train":
+        return init_train_state(master, cell.tcfg), batch(args[1])
+    weights = {k: v.detach().to(args[0][k].dtype) for k, v in master.items()}
+    if cell.kind == "prefill":
+        return weights, batch(args[1])
+    if cell.kind == "long":
+        return weights, batch({"tokens": args[1]})["tokens"]
+    b, slots = args[2].shape[0], _cache_len(args[1])
+    if cfg.family == "audio":
+        with torch.no_grad():
+            cache = init_encdec_cache(
+                encdec_from_jax(params, cfg, device="cpu"),
+                torch.from_numpy(inputs["enc"]).to(cfg.dtype), slots)
+    else:
+        cache = init_decode_cache(cfg, b, slots, device="cpu")
+    return weights, cache, batch({"token": args[2]})["token"]
+
+
+def cells_rank(rank, mesh, cases, systems):
+    """cases: [(arch, shape name, shape, overrides)], systems: per case
+    (JAX params, numpy inputs) -> per case the outputs (whole) of the
+    arch's smoke cell in float32 cut to ``shape``, its arguments
+    (``cell_args``) placed on ``mesh`` by the cell's placements;
+    multi-pod when the pod axis is longer than 1, else on the reference's
+    (data, model) mesh."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import specs
+    multi_pod = mesh.size(0) > 1
+    if not multi_pod:
+        mesh = mesh["data", "model"]
+    out = []
+    for (arch, shape_name, shape, overrides), (params, inputs) in zip(
+            cases, systems):
+        cfg = get_smoke_config(arch).with_(dtype=torch.float32)
+        cell = specs.build_cell(arch, shape_name, mesh, multi_pod=multi_pod,
+                                overrides=overrides, cut=(cfg, shape))
+        args = cell_args(cell, params, inputs)
+        res = cell.fn(*specs.place(args, cell.in_placements, mesh))
+        out.append(_gathered(res))
+    return out
+
+
+def wrappers_rank(rank, mesh, cases):
+    """cases: [(q, k, v) numpy float32] for flash and [(q, k, v, ld, u,
+    s0)] for the scan -> per case the wrapper's output on DTensors (the
+    batch over "data", the heads over "model"), gathered whole."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import linear_scan
+    mesh = mesh["data", "model"]
+    bh = [Shard(0), Shard(2)]
+
+    def place(a, placements):
+        return distribute_tensor(torch.from_numpy(a), mesh, placements,
+                                 src_data_rank=None)
+    flash_cases, scan_cases = cases
+    out = {"flash": [], "scan": []}
+    for q, k, v in flash_cases:
+        o = flash_attention(place(q, bh), place(k, bh), place(v, bh))
+        out["flash"].append(o.full_tensor())
+    for q, k, v, ld, u, s0 in scan_cases:
+        y, st = linear_scan(place(q, bh), place(k, bh), place(v, bh),
+                            place(ld, bh), bonus=place(u, [Replicate(),
+                                                           Shard(0)]),
+                            initial_state=place(s0, [Shard(0), Shard(1)]),
+                            chunk=4)
+        out["scan"].append((y.full_tensor(), st.full_tensor()))
+    return out

@@ -6,8 +6,10 @@
 Needs one CUDA device. NCCL refuses two ranks on one device, so the port
 tests its multi-rank paths on one card with gloo ranks sharing it. This
 script starts two gloo ranks on ``cuda:0`` (rendezvous through a file, a
-60 s timeout) and tries ``all_reduce`` (SUM and MAX), ``all_gather`` and
-``broadcast`` of a CUDA tensor of each dtype; rank 0 prints one line a
+60 s timeout) and tries ``all_reduce`` (SUM and MAX), ``all_gather``,
+``broadcast``, and the three that DTensor's redistributions issue
+(``all_gather_into_tensor``, ``reduce_scatter_tensor`` SUM and
+``all_to_all_single``) of a CUDA tensor of each dtype; rank 0 prints one line a
 (collective, dtype): ``ok`` with the result checked, or the error. Both
 ranks make the same call, so a refusal is raised on both. ``send`` and
 ``recv`` are not tried: gloo's send hands the tensor's pointer to its
@@ -61,7 +63,33 @@ def _rank(rank: int, init_file: str) -> None:
                 t = mine.clone()
                 dist.broadcast(t, src=1)
                 return "ok" if bool((t == 2).all()) else f"wrong: {t}"
-            rows += [(f"all_reduce SUM {name}",
+
+            def gather_into():
+                out = torch.empty((16,), dtype=dtype, device=dev)
+                dist.all_gather_into_tensor(out, mine)
+                ok = bool((out[:8] == 1).all()) and bool((out[8:] == 2).all())
+                return "ok" if ok else f"wrong: {out}"
+
+            def reduce_scatter():
+                src = torch.cat([mine, mine * 2])        # 16 entries
+                out = torch.empty((8,), dtype=dtype, device=dev)
+                dist.reduce_scatter_tensor(out, src)
+                # rank r gets the sum of both ranks' r-th halves
+                want = 3 * (rank + 1)
+                return "ok" if bool((out == want).all()) else f"wrong: {out}"
+
+            def all_to_all():
+                src = torch.cat([mine, mine + 10])        # halves for 0, 1
+                out = torch.empty_like(src)
+                dist.all_to_all_single(out, src)
+                ok = bool((out[:8] == 1 + 10 * rank).all()) and \
+                    bool((out[8:] == 2 + 10 * rank).all())
+                return "ok" if ok else f"wrong: {out}"
+            rows += [(f"all_gather_into_tensor {name}", _try(gather_into)),
+                     (f"reduce_scatter_tensor SUM {name}",
+                      _try(reduce_scatter)),
+                     (f"all_to_all_single {name}", _try(all_to_all)),
+                     (f"all_reduce SUM {name}",
                       _try(lambda: reduce(dist.ReduceOp.SUM, 3))),
                      (f"all_reduce MAX {name}",
                       _try(lambda: reduce(dist.ReduceOp.MAX, 2))),
