@@ -33,9 +33,10 @@ package ``repro``. Phases, each printing lines before the last:
      the linear scan (rwkv with
      bonus, ssm, per-channel and scalar decay, with and without an initial
      state, the rwkv6-3b prefill's and ingest's shapes, zamba2's prefill
-     and ingest block at chunk 128 with a (B, S, H, 1) decay; chunk 32 at
-     the decay clamp, NaN where the plain version has NaN; a per-channel
-     decay at chunk 128 refused before any launch);
+     and ingest block at chunk 128 with a (B, S, H, 1) decay, a
+     per-channel decay at chunk 128 in both modes; chunk 32 and zamba2's
+     chunk of 128 at the decay clamp, NaN where the plain version has
+     NaN);
   4. the BaF main path at the paper's full width (YOLO front at 512x512,
      split tensor 64x64x256, C=64, 8 bits, static rANS, fused restore):
      eight one-image requests through edge -> plan.encode ->
@@ -215,7 +216,8 @@ package ``repro``. Phases, each printing lines before the last:
      prefill (its launches in the prefill) and ingest block
      (``linear_scan/ingest_block``, its launches in the ingest), and at
      zamba2-1.2b's (``linear_scan/zamba2_prefill``,
-     ``linear_scan/zamba2_ingest_block``); flash at head dim 8 in both
+     ``linear_scan/zamba2_ingest_block``; the prefill's shape with a
+     per-channel decay printed beside them); flash at head dim 8 in both
      dtypes (``flash_attention/hd8_f32``, ``hd8_bf16``), and flash and the
      scan at the training runs' shapes (``*/train_<arch>``, their launches
      a training step, forward and recompute) with their plain-torch
@@ -247,6 +249,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, same sheet
+TF32_FLOPS = 495e12              # dense TF32 tensor-core peak, same sheet
 F32_FLOPS = 67e12                # float32 outside the tensor cores
 B, R, P, C, BITS = 8, 64 * 64, 256, 64, 8
 HIDDEN = 64                      # width of the BaF predictor
@@ -858,7 +861,11 @@ def check_lm_kernels(dev) -> dict:
         ("", 1, 96, 3, 32, 48, 16, "rwkv", False, True, False),
         ("", 1, 256, 2, 32, 32, 128, "ssm", False, False, True),
     ] + [(label, QWEN_B, s_, 64, 64, 64, 128, "ssm", False, False, init)
-         for label, s_, init in ZAMBA_SCAN]
+         for label, s_, init in ZAMBA_SCAN] + [
+        # a per-channel decay at chunk 128, both modes
+        ("", QWEN_B, QWEN_PROMPT, 64, 64, 64, 128, "ssm", True, False, False),
+        ("", QWEN_B, QWEN_PROMPT, 64, 64, 64, 128, "rwkv", True, True, True),
+    ]
     for label, *_ in scan_cases:
         if label:
             errs[f"linear_scan/{label}"] = 0.0
@@ -889,52 +896,59 @@ def check_lm_kernels(dev) -> dict:
             key = f"linear_scan/{label}" if label else "linear_scan"
             errs[key] = max(errs[key], err)
     errs["linear_scan"] = max(errs["linear_scan"], scan_overflow_case(dev))
-    # a per-channel decay at chunk 128 does not fit a block's shared memory:
-    # refused before any launch
-    q = torch.ones((1, 128, 1, 64), device=dev)
-    before = _build.LINEAR_SCAN.launches
-    try:
-        linear_scan(q, q, q, -q, chunk=128, mode="ssm")
-    except ValueError as e:
-        print(f"linear scan per-channel decay at chunk 128, dk = dv = 64: "
-              f"refused before any launch ({e})")
-    else:
-        raise AssertionError("per-channel decay at chunk 128 was launched")
-    if _build.LINEAR_SCAN.launches != before:
-        raise AssertionError("the refused scan call counted a launch")
     return errs
 
 
+# the overflow cases: (label, B, S, H, dk, dv, chunk, mode, per-channel
+# decay, bonus), every decay at the clamp
+SCAN_OVERFLOW = (
+    ("chunk 32", 2, 128, 4, 64, 64, 32, "rwkv", True, True),
+    ("chunk 128 at zamba2's layout", QWEN_B, QWEN_PROMPT, 64, 64, 64, 128,
+     "ssm", False, False),
+)
+
+
 def scan_overflow_case(dev) -> float:
-    """chunk 32 with every decay at the clamp (-4): exp(-la) overflows and
-    exp(la) underflows. The factorisation is kept, so the kernel's NaNs
-    stand exactly where the plain version's do; the rest within SCAN_TOL."""
+    """Every decay at the clamp (-4): exp(-la) overflows and exp(la)
+    underflows, at chunk 32 (rwkv, a bonus) and at zamba2's chunk of 128
+    ((B, S, H, 1) decay, ssm: 128 x -4, far past the ~88.7 that exp
+    takes). The factorisation is kept, so the kernel's NaNs stand exactly
+    where the plain version's do (at chunk 128 a masked inf * 0 makes
+    every row NaN there: the tensor-core pass forms the tiles above the
+    diagonal of such a chunk); the rest within SCAN_TOL."""
     import torch
     from repro_torch.kernels.linear_scan import linear_scan, linear_scan_plain
     gen = torch.Generator(device=dev).manual_seed(8)
-    b, s_, h, dk, dv = 2, 128, 4, 64, 64
-    q, k = (torch.randn((b, s_, h, dk), generator=gen, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
-    v = torch.randn((b, s_, h, dv), generator=gen, device=dev) \
-        .to(torch.bfloat16)
-    ld = torch.full((b, s_, h, dk), -4.0, device=dev)
-    u = torch.randn((h, dk), generator=gen, device=dev) * 0.5
-    got = linear_scan(q, k, v, ld, bonus=u, chunk=32)
-    want = linear_scan_plain(q, k, v, ld, bonus=u, chunk=32)
-    sync(dev)
-    nan = torch.isnan(want[0])
-    same_nan = bool(torch.equal(torch.isnan(got[0]), nan))
-    ok = same_nan and int(nan.sum()) > 0 and all(
-        torch.allclose(g, w, atol=SCAN_TOL, rtol=SCAN_TOL, equal_nan=True)
-        for g, w in zip(got, want))
-    err = max_abs_diff(zip(got, want))
-    print(f"linear scan chunk 32 at the decay clamp: {int(nan.sum())} NaN "
-          f"of {nan.numel()} outputs in the plain version, kernel's NaN at "
-          f"the same positions: {same_nan}; max abs diff elsewhere {err!r} "
-          f"(tolerance {SCAN_TOL})")
-    if not ok:
-        raise AssertionError("linear-scan kernel differs on overflow")
-    return err
+    worst = 0.0
+    for label, b, s_, h, dk, dv, chunk, mode, per_ch, bonus in SCAN_OVERFLOW:
+        q, k = (torch.randn((b, s_, h, dk), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        v = torch.randn((b, s_, h, dv), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        ld = torch.full((b, s_, h, dk if per_ch else 1), -4.0, device=dev)
+        u = torch.randn((h, dk), generator=gen, device=dev) * 0.5 \
+            if bonus else None
+        got = linear_scan(q, k, v, ld, bonus=u, chunk=chunk, mode=mode)
+        want = linear_scan_plain(q, k, v, ld, bonus=u, chunk=chunk,
+                                 mode=mode)
+        sync(dev)
+        nan = torch.isnan(want[0])
+        same_nan = bool(torch.equal(torch.isnan(got[0]), nan))
+        ok = same_nan and int(nan.sum()) > 0 and all(
+            torch.allclose(g, w, atol=SCAN_TOL, rtol=SCAN_TOL,
+                           equal_nan=True)
+            for g, w in zip(got, want))
+        err = max_abs_diff(zip(got, want))
+        print(f"linear scan {label} at the decay clamp ({mode}, "
+              f"{'per-channel' if per_ch else '(B, S, H, 1)'} decay): "
+              f"{int(nan.sum())} NaN of {nan.numel()} outputs in the plain "
+              f"version, kernel's NaN at the same positions: {same_nan}; "
+              f"max abs diff elsewhere {err!r} (tolerance {SCAN_TOL})")
+        if not ok:
+            raise AssertionError(f"linear-scan kernel differs on overflow "
+                                 f"({label})")
+        worst = max(worst, err)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -4452,16 +4466,13 @@ GLOO_CELLS = (("qwen2_7b", "train_4k"), ("rwkv6_3b", "decode_32k"))
 DTENSOR_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor SUM",
                        "all_to_all_single")
 # (c): the production dry run on the host, (arch, shape, multi-pod,
-# overrides, depth (None: every layer)). arctic-480b's 8 rows a device take
-# 8 microbatches, not the reference's 16: a microbatch splits each rank's
-# rows, and 8 do not split 16 ways (XLA pads where they do not). The
-# reference's default cell fails so (ROADMAP.md Queue 3); DRY_KNOWN_GAPS
-# runs it and prints its status beside the others, ungated.
+# overrides, depth (None: every layer)). arctic-480b's 8 rows a device in
+# its default 16 microbatches: the step runs gcd(8, 16) = 8 of a row a
+# device, each as many rows a device as the reference's padded ones.
 DRY_CELLS = (("qwen2_72b", "train_4k", False, None, None),
-             ("arctic_480b", "train_4k", True, {"microbatches": 8}, None),
+             ("arctic_480b", "train_4k", True, None, None),
              ("qwen2_7b", "decode_32k", False, {"flash_decode": True}, None),
              ("rwkv6_3b", "long_500k", False, None, None))
-DRY_KNOWN_GAPS = (("arctic_480b", "train_4k", True, None, None),)
 DRY_TIMEOUT_S = 900
 
 _DRY = r"""
@@ -4472,8 +4483,7 @@ sys.path.insert(0, sys.argv[1])
 from repro_torch.configs import get_config
 from repro_torch.configs.base import SHAPES
 from repro_torch.launch import dryrun
-for arch, shape, mp, ov, depth in (json.loads(sys.argv[2])
-                                   + json.loads(sys.argv[3])):
+for arch, shape, mp, ov, depth in json.loads(sys.argv[2]):
     cut = None
     if depth:
         cut = (get_config(arch).with_(n_layers=depth), SHAPES[shape])
@@ -4490,7 +4500,7 @@ def start_dry_run():
     lowest priority, so that the host-bound phases keep their cores."""
     return subprocess.Popen(
         [sys.executable, "-c", _DRY, str(ROOT / "src"),
-         json.dumps(DRY_CELLS), json.dumps(DRY_KNOWN_GAPS)],
+         json.dumps(DRY_CELLS)],
         stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
         preexec_fn=lambda: os.nice(19),
@@ -4734,20 +4744,17 @@ def dry_run_records(proc) -> list:
         raise AssertionError(f"dry run failed: {err[-3000:]}")
     recs = [json.loads(line[4:]) for line in out.splitlines()
             if line.startswith("DRY ")]
-    if len(recs) != len(DRY_CELLS) + len(DRY_KNOWN_GAPS):
+    if len(recs) != len(DRY_CELLS):
         raise AssertionError(f"dry run: {len(recs)} records of "
-                             f"{len(DRY_CELLS) + len(DRY_KNOWN_GAPS)}")
-    for i, rec in enumerate(recs):
+                             f"{len(DRY_CELLS)}")
+    for rec in recs:
         tb = rec.pop("traceback", None)
         depth = rec.pop("depth")
-        gap = i >= len(DRY_CELLS)
         print(f"phase 10e (c) dry run on the host ({rec['mesh']}, meta "
               f"tensors over a fake process group"
-              + (f", {depth} layers" if depth else ", every layer")
-              + (", the reference's default, a known gap (ROADMAP.md "
-                 "Queue 3), not gated" if gap else "") + "): "
+              + (f", {depth} layers" if depth else ", every layer") + "): "
               + json.dumps(rec), flush=True)
-        if not gap and rec["status"] != "ok":
+        if rec["status"] != "ok":
             raise AssertionError(f"dry run {rec['arch']} {rec['shape']}: "
                                  f"{rec.get('error')}\n{tb}")
     return recs
@@ -4783,14 +4790,18 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes, pod) -> list:
 
     def row(name, src, replaces, kernel, plain, nbytes, library, note,
             flops=0.0, peak=F32_FLOPS):
+        """``flops`` at ``peak``, or a list of (flops, peak) terms whose
+        times add up."""
+        terms = flops if isinstance(flops, list) else [(flops, peak)]
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = flops / peak * 1e3
+        by_ops = sum(f / p for f, p in terms) * 1e3
         bound = max(by_bytes, by_ops)
         lib = None if library is None else library[0]
+        ops = " + ".join(f"{f!r} flops at {p:g}/s" for f, p in terms)
         print(f"time {name} ({note}): device time per call, from the "
               f"profiler: kernel {kernel[0]!r} ms, plain {plain[0]!r} ms, "
               f"library {lib!r} ms; bound {bound!r} ms ({nbytes} bytes -> "
-              f"{by_bytes!r} ms; {flops!r} flops at {peak:g}/s -> {by_ops!r} "
+              f"{by_bytes!r} ms; {ops} -> {by_ops!r} "
               f"ms); per call between CUDA events, launch included: kernel "
               f"{kernel[1]!r} ms, plain {plain[1]!r} ms, library "
               f"{None if library is None else library[1]!r} ms; device "
@@ -4924,12 +4935,31 @@ def time_cdf(dev, row, gen) -> list:
     return out
 
 
+def scan_flops(b, h, nc, L, dk, dv, mode, v_bf16) -> list:
+    """The linear scan's work as ``row``'s (flops, peak) terms: in each
+    chunk the intra-chunk products over the (t, s) pairs the mask keeps
+    (s < t in rwkv mode, s <= t in ssm mode), the carried state in and
+    out, and the elementwise decay and bonus terms. Products at
+    float32 accuracy run at the 3xTF32 rate (a third of TF32's), those
+    with a bf16 v at half of it (v is exact in TF32: two terms); the
+    elementwise terms at the float32 rate."""
+    pairs = L * (L - 1) // 2 if mode == "rwkv" else L * (L + 1) // 2
+    f32 = 2 * pairs * dk + 2 * L * dk * dv          # q k^T, q S
+    with_v = 2 * pairs * dv + 2 * L * dk * dv       # scores v, k^T v
+    n = b * h * nc
+    return [(float(n * f32), TF32_FLOPS / 3),
+            (float(n * with_v), TF32_FLOPS / (2 if v_bf16 else 3)),
+            (float(n * 8 * L * dk), F32_FLOPS)]
+
+
 def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
     """flash at the qwen2-7b prefill's shape and at the other paths' (the
     detect head, the 15B prefills, the zoo's prefills and whisper's three
     attentions), the linear scan at the rwkv6-3b and zamba2-1.2b prefills'
     and ingest blocks' (the latter without ``zamba_scan``, for a checkout
-    whose scan kernel does not take zamba2's chunk of 128)."""
+    whose scan kernel does not take zamba2's chunk of 128), and zamba2's
+    prefill shape with a per-channel decay, printed beside its rows (not
+    on a path)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -5021,13 +5051,6 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
         nbytes = b * s_ * h * (2 * dk * 2 + dv * 2 + dk * 4 + dv * 4) \
             + h * dk * 4 + (2 if init else 1) * b * h * dk * dv * 4
         nc = s_ // L
-        # the intra-chunk products over the (t, s) pairs the rwkv mask keeps
-        # (s < t; s <= t in ssm mode), the carried state in and out, and
-        # the elementwise decay and bonus terms
-        pairs = L * (L - 1) // 2 if kw["mode"] == "rwkv" else L * (L + 1) // 2
-        per_chunk = (2 * pairs * dk + 2 * pairs * dv + 2 * L * dk * dv
-                     + 2 * L * dk * dv + 3 * L * dk + 5 * L * dk)
-        flops = float(b * h * nc * per_chunk)
         out.append(row(
             name, "src/repro_torch/csrc/linear_scan.cu",
             "src/repro/kernels/linear_scan.py:80",
@@ -5038,7 +5061,7 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
             f"S={s_} H={h} dk=dv={dk} chunk {L}, rwkv with bonus"
             f"{', initial state' if init else ''}; scratch "
             f"{_scratch_floats(b, h, nc, L, dk, dv) * 4} bytes",
-            flops=flops))
+            flops=scan_flops(b, h, nc, L, dk, dv, "rwkv", True)))
 
     for label, (b, s_, h, dk, dv, L, mode) in SCAN_TRAIN_SHAPES:
         qs, ks = ((torch.randn((b, s_, 1 if mode == "ssm" else h, dk),
@@ -5058,9 +5081,6 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
                                + dv * 4) + b * h * dk * dv * 4 \
             + (h * dk * 4 if u is not None else 0)
         nc = s_ // L
-        pairs = L * (L - 1) // 2 if mode == "rwkv" else L * (L + 1) // 2
-        per_chunk = (2 * pairs * dk + 2 * pairs * dv + 2 * L * dk * dv
-                     + 2 * L * dk * dv + 3 * L * dk + 5 * L * dk)
         r = row(f"linear_scan/{label}", "src/repro_torch/csrc/linear_scan.cu",
                 "src/repro/kernels/linear_scan.py:80",
                 timed(lambda: linear_scan(qs, ks, vs, ld, **kw)),
@@ -5068,7 +5088,7 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
                 nbytes, None,
                 f"{label[6:]} training forward (a microbatch) B={b} S={s_} "
                 f"H={h} dk=dv={dk} chunk {L}, {mode}",
-                flops=float(b * h * nc * per_chunk))
+                flops=scan_flops(b, h, nc, L, dk, dv, mode, True))
         dy = torch.randn((b, s_, h, dv), generator=g, device=dev)
         r["backward_ms"] = timed(lambda: linear_scan_backward(
             (qs, ks, vs, ld, u, None), dy, None, chunk=L, mode=mode))[0]
@@ -5096,10 +5116,7 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
         nbytes = b * s_ * h * (2 * dk * 2 + dv * 2 + 4 + dv * 4) \
             + (2 if init else 1) * b * h * dk * dv * 4
         nc = s_ // L
-        pairs = L * (L + 1) // 2
-        per_chunk = (2 * pairs * dk + 2 * pairs * dv + 2 * L * dk * dv
-                     + 2 * L * dk * dv + 3 * L * dk + 5 * L * dk)
-        flops = float(b * h * nc * per_chunk)
+        flops = scan_flops(b, h, nc, L, dk, dv, "ssm", True)
         out.append(row(
             f"linear_scan/{label}", "src/repro_torch/csrc/linear_scan.cu",
             "src/repro/kernels/linear_scan.py:80",
@@ -5111,6 +5128,18 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
             f"{', initial state' if init else ''}; scratch "
             f"{_scratch_floats(b, h, nc, L, dk, dv) * 4} bytes",
             flops=flops))
+        if init:
+            continue
+        # the same shape with a per-channel (B, S, H, dk) decay
+        ld = -F.softplus(torch.randn((b, s_, h, dk), generator=g, device=dev)
+                         - 2.0) * 0.6931
+        row(f"linear_scan/{label}", "", "",
+            timed(lambda: linear_scan(qs, ks, vs, ld, **kw)),
+            timed(lambda: linear_scan_plain(qs, ks, vs, ld, **kw)),
+            nbytes + b * s_ * h * (dk - 1) * 4, None,
+            f"zamba2-1.2b prefill shape B={b} S={s_} H={h} dk=dv={dk} chunk "
+            f"{L}, ssm, a per-channel (B, S, H, dk) decay (not on a path)",
+            flops=flops)
     return out
 
 

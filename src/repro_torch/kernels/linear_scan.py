@@ -45,24 +45,40 @@ _SMEM_BYTES = 227 * 1024
 
 _MAX_DK = 128          # the state rows a thread of the carry pass holds
 _JS = 16               # dv columns per block of the carry pass
+_PB = 64               # rows of a chunk the carry pass copies at once
 
 
 def _r4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def _r8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
 def _smem_floats(chunk: int, dk: int, dv: int, per_channel: bool) -> int:
     """Shared memory of the larger of the kernel's two passes, as
-    ``smem_floats_a`` and ``smem_floats_b`` in the CUDA source (rows over
-    dk padded to a multiple of 4, plus 4 in pass A; rows over dv to a
-    multiple of 64). Pass A holds a per-channel log-decay as (chunk, dk)
-    rows and a scalar one (Mamba-2's (B, S, H, 1)) and its cumsum as two
-    chunk-long vectors."""
+    ``smem_bytes_a`` and ``smem_bytes_b`` in the CUDA source. Pass A at
+    chunks up to 64 (``smem_floats_a``): rows over dk padded to a multiple
+    of 4, plus 4 (q, k, k_rem and the log-decay, a scalar one broadcast
+    over dk); rows over dv to a multiple of 64; an [L][L] score buffer.
+    Pass A at longer chunks, on the tensor cores (``smem_floats_mma``):
+    the chunk padded to 16 rows, rows over dk and dv padded to a multiple
+    of 8, plus 4; q, k and a third area holding the per-channel
+    log-decay, then v; three chunk-long vectors, 256 for la_end and 4
+    flags. Pass B (``smem_floats_b``): two stages of at most 64 rows of a
+    chunk and the state's slice."""
     dk4, dv64 = _r4(dk), (dv + 63) // 64 * 64
-    ld = chunk * (dk4 + 4) if per_channel else 2 * _r4(chunk)
-    a = 3 * chunk * (dk4 + 4) + chunk * dv64 \
-        + _r4(chunk * chunk + chunk + dk) + ld
-    stage = chunk * dk4 + chunk * (dk4 + 4) + 2 * chunk * _JS + dk4
+    if chunk > 64:
+        lp = (chunk + 15) // 16 * 16
+        sk, sv = _r8(dk) + 4, _r8(dv) + 4
+        third = lp * sk if per_channel and sk > sv else lp * sv
+        a = 2 * lp * sk + third + _r4(3 * lp) + 256 + 4
+    else:
+        a = 4 * chunk * (dk4 + 4) + chunk * dv64 \
+            + _r4(chunk * chunk + chunk + dk)
+    rows = min(chunk, _PB)      # pass B copies a chunk in such pieces
+    stage = rows * dk4 + rows * (dk4 + 4) + 2 * rows * _JS + dk4
     return max(a, 2 * stage + dk4 * _JS)
 
 

@@ -14,7 +14,10 @@ respect to that cast copy and casts them to float32, as the reference's
 cast copy in the skeleton, which the call swaps out when it returns.
 
 Microbatches: the float32 gradients of each are summed, then the loss and
-the gradients are divided by their number. The update is the port's
+the gradients are divided by their number. A batch DTensor-sharded on its
+rows is split within each rank; where a rank's rows are fewer than the
+microbatches (or do not split that many ways), the step runs gcd(rows a
+rank, microbatches) of them (``_groups``). The update is the port's
 ``adamw_update`` with its global-norm clip, leaf by leaf and written into
 the state's tensors, so a step takes 16 B a parameter beyond its
 activations (master, two moments, the float32 gradients) where the
@@ -34,6 +37,7 @@ Without ``multi_pod`` the field is ignored, as in the reference.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -143,13 +147,32 @@ def _chunk(v, n: int, i: int):
     return v.chunk(n)[i]
 
 
+def _groups(batch: dict, n: int) -> int:
+    """How many microbatches the step runs for ``n`` asked: ``n``, or for a
+    batch DTensor-sharded on its rows whose r rows a rank do not split n
+    ways, gcd(r, n), of r / gcd(r, n) rows a rank each. Where n is a
+    multiple of r (8 rows a rank in 16 microbatches: arctic-480b's and
+    qwen2-72b's ``train_4k`` on two pods) that is a row a rank, as many
+    as the reference's microbatches hold a device once XLA pads them,
+    and every row real. The mean loss and gradients over equal
+    microbatches are the means over all the rows either way, for MoE
+    too: each row is its own routing group, with its own capacity and
+    balance loss."""
+    for v in batch.values():
+        if isinstance(v, DTensor) and Shard(0) in v.placements:
+            return math.gcd(v.to_local().shape[0], n)
+    return n
+
+
 def _microbatches(batch: dict, n: int) -> list[dict]:
-    """(B, ...) leaves -> n dicts of (B / n, ...) rows, in order."""
+    """(B, ...) leaves -> ``_groups(batch, n)`` dicts of equal rows, in
+    order."""
     for k, v in batch.items():
         if v.shape[0] % n:
             raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not a "
                              f"multiple of {n} microbatches")
-    return [{k: _chunk(v, n, i) for k, v in batch.items()} for i in range(n)]
+    m = _groups(batch, n)
+    return [{k: _chunk(v, m, i) for k, v in batch.items()} for i in range(m)]
 
 
 def make_grads_fn(cfg: ArchConfig, tcfg: TrainConfig):
@@ -171,13 +194,14 @@ def make_grads_fn(cfg: ArchConfig, tcfg: TrainConfig):
                 for k in names]
         weights = {"model." + k: t for k, t in zip(names, cast)}
         loss, acc = None, None
-        for mb in _microbatches(batch, n):
+        mbs = _microbatches(batch, n)
+        for mb in mbs:
             l, gs = torch.func.functional_call(bound, weights, (mb, cast))
             gs = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
                   if g is None else g.float() for g, t in zip(gs, cast)]
             loss = l if loss is None else loss + l
             acc = gs if acc is None else [a + g for a, g in zip(acc, gs)]
-        div = torch.tensor(float(n), device=loss.device)
+        div = torch.tensor(float(len(mbs)), device=loss.device)
         return loss / div, {k: g / div for k, g in zip(names, acc)}
     return grads_of
 

@@ -11,12 +11,14 @@ inputs. A second witness: the same steps built without a cell
 (``make_train_step``, ``make_prefill_step``, ``make_decode_step``,
 ``make_long_ingest``) in one process, every output at 1e-4.
 
-Meshes: (data 2, model 2) over 4 ranks, (data 1, model 2) over 2, (data
-1, model 4) over 4 (a sequence-sharded KV cache, decoded with and without
+Meshes: (data 2, model 2) over 4 ranks (a train cell among them with 2
+rows a rank in 4 microbatches, fewer rows a rank than microbatches, as
+arctic-480b's and qwen2-72b's ``train_4k`` on two pods), (data 1, model
+2) over 2, (data 1, model 4) over 4 (a sequence-sharded KV cache, decoded with and without
 the flash-decode), and (pod 2, data 1, model 2) over 4 for a multi-pod
 cell. The archs: qwen2-7b
 (GQA kv heads), rwkv6-3b (the scan, chunk 16), olmoe-1b-7b (MoE rows
-routed on their rank), zamba2-1.2b (the scan at chunk 128 and the shared
+routed on their rank; also 2 rows a rank in 4 microbatches), zamba2-1.2b (the scan at chunk 128 and the shared
 block) and whisper-tiny (the encoder-decoder).
 
 Also: ``shard_hidden`` with no context leaves a forward bit-identical, and
@@ -63,11 +65,16 @@ MB2 = {"microbatches": 2}
 
 CASES_4 = [
     ("qwen2_7b", "train_4k", TRAIN, MB2),
+    # 2 rows a rank, 4 microbatches: fewer rows a rank than microbatches
+    ("qwen2_7b", "train_4k", TRAIN, {"microbatches": 4}),
     ("qwen2_7b", "prefill_32k", PREFILL, None),
     ("qwen2_7b", "decode_32k", DECODE, None),
     ("rwkv6_3b", "long_500k", LONG, None),
     ("rwkv6_3b", "decode_32k", DECODE, None),
     ("olmoe_1b_7b", "train_4k", TRAIN, MB2),
+    # the same for MoE: each row is a routing group, so its capacity and
+    # balance loss do not depend on how rows form microbatches
+    ("olmoe_1b_7b", "train_4k", TRAIN, {"microbatches": 4}),
     ("olmoe_1b_7b", "decode_32k", DECODE, None),
     ("zamba2_1p2b", "long_500k", LONG, None),
     ("whisper_tiny", "decode_32k", DECODE, None),
@@ -369,6 +376,8 @@ def ranks(tmp_path_factory, systems):
 
 def _ids(cases):
     return [f"{a}-{s}" + ("-flash" if o and o.get("flash_decode") else "")
+            + (f"-mb{o['microbatches']}"
+               if o and o.get("microbatches", 2) != 2 else "")
             for a, s, _, o in cases]
 
 

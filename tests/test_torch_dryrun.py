@@ -9,6 +9,7 @@ DTensors over a fake process group.
   ``memory_analysis()`` for the same cells compiled on 8 fake CPU devices
   with Auto axes (every sharded dim divides there).
 * A train cell's per-device flops at data = 2 are half those at data = 1.
+* A train cell with fewer rows a rank than microbatches runs.
 * The expected collective kinds appear: FSDP all-gathers of the weights,
   reduce-scatters of their gradients, all-reduces.
 * The flash and scan wrappers on meta tensors charge what they charge at
@@ -40,14 +41,16 @@ ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
 PORT = r"""
 import json
 from repro_torch.launch import dryrun
-cells = [("qwen2_7b", "train_4k", {"pod": 2, "data": 2, "model": 2}),
-         ("rwkv6_3b", "decode_32k", {"data": 2, "model": 2}),
-         ("qwen2_7b", "train_4k", {"data": 2, "model": 2}),
-         ("qwen2_7b", "train_4k", {"data": 1, "model": 2})]
+cells = [("qwen2_7b", "train_4k", {"pod": 2, "data": 2, "model": 2}, None),
+         ("rwkv6_3b", "decode_32k", {"data": 2, "model": 2}, None),
+         ("qwen2_7b", "train_4k", {"data": 2, "model": 2}, None),
+         ("qwen2_7b", "train_4k", {"data": 1, "model": 2}, None),
+         ("qwen2_7b", "train_4k", {"data": 64, "model": 2},
+          {"microbatches": 8})]
 out = []
-for arch, shape, mesh in cells:
+for arch, shape, mesh, ov in cells:
     rec = dryrun.run_cell(arch, shape, multi_pod="pod" in mesh, smoke=True,
-                          mesh_shape=mesh, verbose=False)
+                          mesh_shape=mesh, overrides=ov, verbose=False)
     out.append(rec)
 print("JSON" + json.dumps(out))
 """
@@ -117,6 +120,18 @@ def test_train_flops_halve_with_the_data_axis(runs):
     two, one = runs[0][2], runs[0][3]
     assert two["flops"] * 2 == one["flops"]
     assert two["argument_size_in_bytes"] < one["argument_size_in_bytes"]
+
+
+def test_cell_with_fewer_rows_a_rank_than_microbatches_runs(runs):
+    """256 rows over data 64: 4 rows a rank, 8 microbatches asked (as
+    arctic-480b's 8 rows a rank in 16 on two pods). The step runs
+    gcd(4, 8) = 4 microbatches of a row a rank: ok, and flash launched as
+    often as in the 4-microbatch cell (each layer twice a microbatch under
+    full remat)."""
+    rec = runs[0][4]
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["mesh"] == "64x2" and rec["argument_size_in_bytes"] > 0
+    assert rec["kernels"] == runs[0][0]["kernels"]
 
 
 def test_collective_kinds(runs):

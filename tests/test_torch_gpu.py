@@ -17,6 +17,7 @@ feeds P to the tensor cores as a high and a low bf16 part). Linear scan: 1e-4 (f
 another order over 16-step chunks), NaN where the plain version has NaN.
 """
 import contextlib
+import math
 
 import numpy as np
 import pytest
@@ -594,6 +595,24 @@ SCAN_CASES = [
     (1, 64, 2, 16, 40, 8, "ssm", True, False, False),      # ragged dv tile
     (2, 512, 64, 64, 64, 128, "ssm", False, False, False), # zamba2 prefill
     (2, 4096, 64, 64, 64, 128, "ssm", False, False, True), # its ingest block
+    # chunk 128 on the tensor cores: both modes, both decays, with and
+    # without an initial state, compiled and generic dims, a chunk that
+    # is not a multiple of the 16-row tiles
+    (2, 512, 8, 64, 64, 128, "ssm", True, False, False),
+    (2, 512, 8, 64, 64, 128, "ssm", True, False, True),
+    (2, 512, 8, 64, 64, 128, "rwkv", True, True, True),
+    (2, 256, 4, 64, 64, 128, "rwkv", False, True, False),
+    (2, 256, 4, 64, 64, 128, "rwkv", True, False, False),
+    (1, 256, 3, 32, 48, 128, "ssm", True, False, True),
+    (1, 256, 3, 72, 136, 128, "rwkv", True, True, True),
+    (1, 256, 2, 128, 128, 128, "rwkv", True, True, True),   # dk = 128
+    (1, 200, 2, 24, 40, 100, "rwkv", True, True, True),
+    (1, 200, 2, 24, 40, 100, "ssm", False, False, False),
+    # dk and dv not multiples of 8: pass A's element-wise loads and pads
+    (1, 256, 3, 20, 12, 128, "ssm", True, False, True),
+    (2, 256, 2, 20, 12, 128, "ssm", False, False, False),
+    (1, 256, 3, 20, 12, 128, "rwkv", True, True, False),
+    (1, 256, 2, 20, 12, 128, "rwkv", False, True, True),
 ]
 
 
@@ -621,23 +640,94 @@ def test_linear_scan_kernel_matches_plain(cuda, dtype, case):
         torch.testing.assert_close(gt, wt, atol=1e-4, rtol=1e-4)
 
 
+OVERFLOW_CASES = [
+    # B, S, H, dk, dv, chunk, mode, per-channel decay, bonus
+    (2, 64, 3, 32, 16, 32, "rwkv", True, True),
+    (2, 256, 4, 64, 64, 128, "ssm", False, False),     # zamba2's layout
+    (1, 256, 3, 64, 64, 128, "rwkv", True, True),
+    (1, 256, 3, 20, 12, 128, "ssm", True, False),      # element-wise loads
+    (1, 256, 2, 20, 12, 128, "rwkv", False, True),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_linear_scan_kernel_overflows_like_plain(cuda, dtype):
-    """chunk 32 with every decay at the clamp (-4): exp(-la) overflows and
-    exp(la) underflows; the kernel keeps the factorisation, so its NaNs
-    stand exactly where the plain version's do."""
-    b, s, h, dk, dv = 2, 64, 3, 32, 16
+@pytest.mark.parametrize("case", OVERFLOW_CASES)
+def test_linear_scan_kernel_overflows_like_plain(cuda, dtype, case):
+    """Every decay at the clamp (-4): exp(-la) overflows and exp(la)
+    underflows; the kernel keeps the factorisation, so its NaNs stand
+    exactly where the plain version's do. At chunk 128 a masked inf * 0
+    makes whole rows NaN in the plain version: the tensor-core pass must
+    form the tiles above the diagonal of such a chunk too."""
+    b, s, h, dk, dv, chunk, mode, per_channel, bonus = case
     g = torch.Generator(device=cuda).manual_seed(9)
     q, k = (torch.randn((b, s, h, dk), generator=g, device=cuda).to(dtype)
             for _ in range(2))
     v = torch.randn((b, s, h, dv), generator=g, device=cuda).to(dtype)
-    ld = torch.full((b, s, h, dk), -4.0, device=cuda)
-    u = torch.randn((h, dk), generator=g, device=cuda)
-    got = linear_scan(q, k, v, ld, bonus=u, chunk=32)
+    ld = torch.full((b, s, h, dk if per_channel else 1), -4.0, device=cuda)
+    u = torch.randn((h, dk), generator=g, device=cuda) if bonus else None
+    got = linear_scan(q, k, v, ld, bonus=u, chunk=chunk, mode=mode)
     torch.cuda.synchronize()
-    want = linear_scan_plain(q, k, v, ld, bonus=u, chunk=32)
+    want = linear_scan_plain(q, k, v, ld, bonus=u, chunk=chunk, mode=mode)
     assert not bool(torch.isfinite(want[0]).all())
     assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    for gt, wt in zip(got, want):
+        torch.testing.assert_close(gt, wt, atol=1e-4, rtol=1e-4,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["ssm", "rwkv"])
+@pytest.mark.parametrize("overflow", [False, True])
+def test_linear_scan_kernel_misaligned_inputs_match_plain(cuda, dtype, mode,
+                                                          overflow):
+    """Chunk 128 with q, k, v and the per-channel decay contiguous views
+    one element past a 16-byte boundary: pass A takes its element-wise
+    loads; within 1e-4 of the plain version, and at the clamp with NaN at
+    the plain version's positions."""
+    b, s, h, dk, dv = 1, 256, 2, 64, 64
+    g = torch.Generator(device=cuda).manual_seed(12)
+
+    def shifted(shape, scale, dt):
+        flat = torch.randn(1 + math.prod(shape), generator=g, device=cuda)
+        return (flat * scale).to(dt)[1:].view(shape)
+
+    q, k = (shifted((b, s, h, dk), 0.5, dtype) for _ in range(2))
+    v = shifted((b, s, h, dv), 1.0, dtype)
+    ld = shifted((b, s, h, dk), 0.5, torch.float32)
+    ld = ld.fill_(-4.0) if overflow else ld.sub_(1.0).exp_().neg_()
+    u = torch.randn((h, dk), generator=g, device=cuda) * 0.5 \
+        if mode == "rwkv" else None
+    assert all(t.is_contiguous() and t.data_ptr() % 16
+               for t in (q, k, v, ld))
+    got = linear_scan(q, k, v, ld, bonus=u, chunk=128, mode=mode)
+    torch.cuda.synchronize()
+    want = linear_scan_plain(q, k, v, ld, bonus=u, chunk=128, mode=mode)
+    assert bool(torch.isfinite(want[0]).all()) != overflow
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+    for gt, wt in zip(got, want):
+        torch.testing.assert_close(gt, wt, atol=1e-4, rtol=1e-4,
+                                   equal_nan=True)
+
+
+def test_linear_scan_kernel_overflow_in_one_chunk(cuda):
+    """Chunk 128, one chunk of four at the clamp: that chunk forms every
+    tile (NaN as the plain version), the others skip the tiles above the
+    diagonal; all within 1e-4 of the plain version."""
+    b, s, h, dk, dv = 1, 512, 4, 64, 64
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k = (torch.randn((b, s, h, dk), generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=g, device=cuda) \
+        .to(torch.bfloat16)
+    ld = -torch.exp(torch.randn((b, s, h, 1), generator=g, device=cuda)
+                    - 2.0)
+    ld[:, 256:384] = -4.0
+    got = linear_scan(q, k, v, ld, chunk=128, mode="ssm")
+    torch.cuda.synchronize()
+    want = linear_scan_plain(q, k, v, ld, chunk=128, mode="ssm")
+    nan = torch.isnan(want[0])
+    assert bool(nan[:, 256:384].all()) and not bool(nan[:, :256].any())
+    assert torch.equal(torch.isnan(got[0]), nan)
     for gt, wt in zip(got, want):
         torch.testing.assert_close(gt, wt, atol=1e-4, rtol=1e-4,
                                    equal_nan=True)
@@ -655,14 +745,26 @@ def test_linear_scan_refuses_dk_over_128(cuda):
 
 
 def test_linear_scan_refuses_per_channel_decay_at_chunk_128(cuda):
-    """A per-channel decay keeps (chunk, dk) rows in shared memory: at
-    chunk 128 and dk = dv = 64 they do not fit, and the call raises before
-    any launch (a scalar decay at that shape runs, SCAN_CASES)."""
-    q = torch.ones((1, 128, 1, 64), device=cuda)
+    """A per-channel decay at chunk 128 and dk = dv = 64 now fits the
+    tensor-core pass (107,024 B of shared memory): one launch, within 1e-4
+    of the plain version. What still does not fit a block's shared memory
+    at that chunk (dk = 128 with dv = 512) raises before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((1, 128, 1, 64), generator=g, device=cuda) * 0.5
+    ld = -torch.exp(torch.randn((1, 128, 1, 64), generator=g,
+                                device=cuda) * 0.5 - 2.0)
     before = _build.LINEAR_SCAN.launches
+    got = linear_scan(q, q, q, ld, chunk=128, mode="ssm")
+    torch.cuda.synchronize()
+    assert _build.LINEAR_SCAN.launches == before + 1
+    want = linear_scan_plain(q, q, q, ld, chunk=128, mode="ssm")
+    for gt, wt in zip(got, want):
+        torch.testing.assert_close(gt, wt, atol=1e-4, rtol=1e-4)
+    wide = torch.ones((1, 128, 1, 128), device=cuda)
+    v = torch.ones((1, 128, 1, 512), device=cuda)
     with pytest.raises(ValueError, match="per-channel decay do not fit"):
-        linear_scan(q, q, q, -q, chunk=128, mode="ssm")
-    assert _build.LINEAR_SCAN.launches == before
+        linear_scan(wide, wide, v, -wide, chunk=128, mode="ssm")
+    assert _build.LINEAR_SCAN.launches == before + 1
 
 
 ALL_ARCHS = ["qwen2_7b", "rwkv6_3b", "starcoder2_15b", "nemotron4_15b",

@@ -6,7 +6,8 @@ of ``models/linear_attention.py``. It is held to the JAX Pallas scan
 1e-4, and to the recurrent oracle ``reference_scan`` at 1e-3 (the chunked
 factorisation rounds differently from the step-by-step recurrence), over
 both modes, per-channel and scalar decay, with and without a bonus and an
-initial state. Inputs are numpy draws from fixed seeds.
+initial state, at chunk 128 with a per-channel decay too (overflow
+included). Inputs are numpy draws from fixed seeds.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,8 @@ import torch
 
 from repro.kernels import ops
 from repro.models import linear_attention as JL
-from repro_torch.kernels.linear_scan import linear_scan
+from repro_torch.kernels.linear_scan import (_SMEM_BYTES, _smem_floats,
+                                             linear_scan)
 from repro_torch.models import linear_attention as TL
 
 
@@ -127,3 +129,65 @@ def test_scan_wrapper_validates():
     assert y.device.type == "meta" and y.shape == v.shape \
         and y.dtype == torch.float32
     assert st.shape == (q.shape[0], q.shape[2], q.shape[3], v.shape[3])
+
+
+@pytest.mark.parametrize("mode", ["rwkv", "ssm"])
+def test_per_channel_decay_at_chunk_128_matches_jax(mode):
+    """A per-channel decay at zamba2's chunk of 128, which the kernel takes
+    since its tensor-core pass A: the plain version against the JAX Pallas
+    scan (interpret mode) at 1e-4, rwkv with a bonus, an initial state."""
+    q, k, v, ld, u, s0 = _inputs(5, b=1, s=256, h=2, dk=16, dv=8,
+                                 bonus=mode == "rwkv")
+    y, st = linear_scan(*[_torch(a) for a in (q, k, v, ld)], bonus=_torch(u),
+                        initial_state=_torch(s0), chunk=128, mode=mode)
+    want = ops.linear_scan(*[_jax(a) for a in (q, k, v, ld)], bonus=_jax(u),
+                           initial_state=_jax(s0), chunk=128, mode=mode)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want[0]), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(st.numpy(), np.asarray(want[1]), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["rwkv", "ssm"])
+def test_per_channel_decay_at_chunk_128_overflows_like_jax(mode):
+    """The same inputs with every decay at the clamp: 128 x -4 takes
+    exp(-la) past float32. The plain version keeps the JAX chunked
+    engine's 0/1 mask product, so a masked inf * 0 makes every row NaN:
+    NaN where ``chunked_linear_attention`` has NaN, 1e-4 elsewhere. The
+    JAX Pallas scan masks with ``jnp.where`` instead: its NaN are a subset
+    of those (rows past the overflow that the mask zeroes stay finite
+    there), and the final states agree at 1e-4."""
+    q, k, v, ld, u, s0 = _inputs(5, b=1, s=256, h=2, dk=16, dv=8,
+                                 bonus=mode == "rwkv")
+    ld = np.full_like(ld, -4.0)
+    y, st = linear_scan(*[_torch(a) for a in (q, k, v, ld)], bonus=_torch(u),
+                        initial_state=_torch(s0), chunk=128, mode=mode)
+    jargs = [_jax(a) for a in (q, k, v, ld)]
+    kw = dict(bonus=_jax(u), initial_state=_jax(s0), chunk=128, mode=mode)
+    chunked = JL.chunked_linear_attention(*jargs, **kw)
+    pallas = ops.linear_scan(*jargs, **kw)
+    nan = np.isnan(y.numpy())
+    assert nan.any()
+    np.testing.assert_array_equal(nan, np.isnan(np.asarray(chunked[0])))
+    for g, w in zip((y, st), chunked):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4, equal_nan=True)
+    pallas_nan = np.isnan(np.asarray(pallas[0]))
+    assert pallas_nan.any() and not (pallas_nan & ~nan).any()
+    np.testing.assert_allclose(st.numpy(), np.asarray(pallas[1]), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_per_channel_decay_at_chunk_128_fits_the_kernel():
+    """The wrapper's reckoning of the kernel's shared memory (the larger
+    pass): a per-channel decay at chunk 128, dk = dv = 64, takes the
+    tensor-core pass A's 107,024 B, as a scalar one does, so two blocks
+    fit an SM (228 KB, 1 KB reserved a block); at chunk 16 the CUDA-core
+    layout stands; what does not fit a block (dk = 128, dv = 512) is
+    refused."""
+    for per_channel in (True, False):
+        assert _smem_floats(128, 64, 64, per_channel) * 4 == 107_024
+    assert 2 * (107_024 + 1024) <= 233_472
+    assert _smem_floats(16, 64, 64, True) * 4 == 25_600
+    assert _smem_floats(128, 128, 128, True) * 4 <= _SMEM_BYTES
+    assert _smem_floats(128, 128, 512, True) * 4 > _SMEM_BYTES

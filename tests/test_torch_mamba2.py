@@ -202,12 +202,14 @@ def test_plain_scan_at_chunk_128_with_a_scalar_decay(dtype, init):
 def test_scan_kernel_fits_zamba2_chunk_with_a_scalar_decay():
     """The kernel's shared memory (the CUDA source's layout, mirrored by
     ``_smem_floats``): chunk 128 at dk = dv = 64 fits with a scalar decay
-    (51,136 floats), not with a per-channel one (59,584), which the
-    wrapper refuses before any launch; rwkv6-3b's chunk 16 is as before."""
-    assert _smem_floats(128, 64, 64, False) == 51136
+    in the tensor-core pass A (3 areas of 128 x 68 floats, 3 x 128
+    vectors, 256 for la_end and 4 flags: 26,756 floats), and with a
+    per-channel one in the same footprint (its log-decay takes v's area
+    until v is loaded); rwkv6-3b's chunk 16 is as before."""
+    assert _smem_floats(128, 64, 64, False) == 26756
     assert _smem_floats(128, 64, 64, False) * 4 <= _SMEM_BYTES
-    assert _smem_floats(128, 64, 64, True) == 59584
-    assert _smem_floats(128, 64, 64, True) * 4 > _SMEM_BYTES
+    assert _smem_floats(128, 64, 64, True) == 26756
+    assert _smem_floats(128, 64, 64, True) * 4 <= _SMEM_BYTES
     # chunk 16: pass A 4 * 16 * 68 + 16 * 64 + 336 = 5,712 floats, pass B
     # two stages of 2,688 and the (64, 16) state slice
     assert _smem_floats(16, 64, 64, True) == 2 * 2688 + 64 * 16

@@ -25,7 +25,8 @@ shapes ``chip_smoke.py`` times them:
     time and device operations;
   - flash attention and the linear scan (prefill and ingest block) through
     ``chip_smoke.time_lm_kernels`` (the scan at zamba2's chunk of 128 only
-    where ROOT's scan kernel takes it); ``--lm`` times these alone.
+    where ROOT's scan kernel takes it, and there with a per-channel decay
+    too); ``--lm`` times these alone.
 
 So two checkouts can be compared on one card, with one way of reading the
 profiler, by running this script in turns, e.g. with the parent unpacked
@@ -89,6 +90,7 @@ def time_lm(dev, gen) -> None:
             **_):
         print(f"time {name} ({note}): device {kernel[0]!r} ms per call, "
               f"{kernel[2]!r} device operations per call")
+        return {"name": name}     # the training rows add their backward
     # the scan takes a chunk of 128 with a scalar decay where its shared
     # memory is reckoned by the decay's kind
     cs.time_lm_kernels(dev, row, gen,
