@@ -218,7 +218,9 @@ package ``repro``. Phases, each printing lines before the last:
      zamba2-1.2b's (``linear_scan/zamba2_prefill``,
      ``linear_scan/zamba2_ingest_block``; the prefill's shape with a
      per-channel decay printed beside them); flash at head dim 8 in both
-     dtypes (``flash_attention/hd8_f32``, ``hd8_bf16``), and flash and the
+     dtypes (``flash_attention/hd8_f32``, ``hd8_bf16``), flash in float32
+     at the qwen2-7b prefill's shape (``flash_attention/qwen2_7b_f32``, its
+     launches in qwen2-7b's float32 prefill), and flash and the
      scan at the training runs' shapes (``*/train_<arch>``, their launches
      a training step, forward and recompute) with their plain-torch
      backward's time (``backward_ms``), and in the compressed step
@@ -326,7 +328,8 @@ WHISPER_SEED, WHISPER_FRAMES, WHISPER_TOKENS = 8, 1500, 448
 # Flash at the paths' shapes, (B, Sq, Sk, H, KH, hd, causal): the detect
 # head over a micro-batch of 8 restored 64x64 grids (4096 tokens), the 15B
 # prefills, the zoo's prefills (zamba2's shared block), whisper's encoder,
-# decoder self-attention and cross-attention.
+# decoder self-attention and cross-attention, and qwen2-7b's prefill in
+# float32 (the full-width float32 check's, head dim 128).
 DETECT_FLASH = (8, 64 * 64, 64 * 64, 2, 2, 16, False)
 FLASH_PATH_SHAPES = (
     ("detect_head", "float32", DETECT_FLASH),
@@ -347,7 +350,9 @@ FLASH_PATH_SHAPES = (
     ("whisper_decoder", "bfloat16", (QWEN_B, WHISPER_TOKENS, WHISPER_TOKENS,
                                      6, 6, 64, True)),
     ("whisper_cross", "bfloat16", (QWEN_B, WHISPER_TOKENS, WHISPER_FRAMES,
-                                   6, 6, 64, False)))
+                                   6, 6, 64, False)),
+    ("qwen2_7b_f32", "float32", (QWEN_B, QWEN_PROMPT, QWEN_PROMPT, 28, 4,
+                                 128, True)))
 # LM training (phase 10a): LM_TRAIN_STEPS steps of TRAIN_MB microbatches
 # at full width, bf16 over float32 master weights, as (arch, layers kept:
 # None for all, B, S, weight seed, token seed). zamba2-1.2b (1.2 B) and
@@ -2411,6 +2416,7 @@ def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import param_count_dense
+    from repro_torch.kernels import _build
     from repro_torch.models.lm import init_decode_cache, init_lm, lm_forward
 
     cfg = get_config(arch)
@@ -2435,7 +2441,9 @@ def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
     # attention, and the cache fill
     model.float()
     model.cfg = cfg.with_(dtype=torch.float32)
+    _build.reset_launches()
     logits32 = lm_forward(model, **batch)[0]
+    launches32 = {k.name: k.launches for k in _build.KERNELS}
     plain32 = lm_forward(model, attention="blocked", **batch)[0]
     cache32 = init_decode_cache(model.cfg, QWEN_B, QWEN_PROMPT, device=dev)
     for t in range(QWEN_PROMPT):
@@ -2444,7 +2452,8 @@ def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
     noise = _dist(plain, plain32)
     print(f"{name} bf16 against float32 of the same weights: prefill with "
           f"the kernel {_dist(logits, logits32)!r}, with plain attention "
-          f"{noise!r}, cache fill {_dist(last, last32)!r} (max abs)")
+          f"{noise!r}, cache fill {_dist(last, last32)!r} (max abs); "
+          f"launches in the float32 prefill {launches32}")
     checks = _f32_checks(name, [
         ("prefill: flash kernel vs plain attention", logits32, plain32),
         ("last prompt position: prefill vs cache fill (decode attention)",
@@ -2455,7 +2464,8 @@ def dense_lm_path(dev, arch: str, seed: int, token_seed: int,
     del logits32, plain32, logits, plain
     torch.cuda.empty_cache()
     return dict(launches=run["launches"], times=run["times"], checks=checks,
-                noise=noise, steps=run["steps"], tokens=run["tokens"])
+                noise=noise, steps=run["steps"], tokens=run["tokens"],
+                launches32=launches32)
 
 
 def rwkv_path(dev) -> dict:
@@ -4952,6 +4962,22 @@ def scan_flops(b, h, nc, L, dk, dv, mode, v_bf16) -> list:
             (float(n * 8 * L * dk), F32_FLOPS)]
 
 
+def flash_flops(b, sq, sk, h, hd, causal, dtype: str) -> list:
+    """Flash attention's work as ``row``'s (flops, peak) terms, over the
+    (query, key) pairs the mask keeps (causal aligned by Sk - Sq, Sq <=
+    Sk; or every pair). Per kept pair and head: 2 hd flops of q.k and 2 hd
+    of p.v, and in float32 4 elementwise flops of the online softmax (the
+    max, the subtraction, the exponential and the row sum; the scale folds
+    into q). float32 products run at the 3xTF32 rate (a third of TF32's),
+    the elementwise terms at the float32 rate; bf16 rows take the products
+    at the bf16 tensor-core rate."""
+    pairs = (sq * (sq + 1) // 2 + sq * (sk - sq)) if causal else sq * sk
+    n = b * h * pairs
+    if dtype == "bfloat16":
+        return [(4.0 * hd * n, BF16_FLOPS)]
+    return [(4.0 * hd * n, TF32_FLOPS / 3), (4.0 * n, F32_FLOPS)]
+
+
 def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
     """flash at the qwen2-7b prefill's shape and at the other paths' (the
     detect head, the 15B prefills, the zoo's prefills and whisper's three
@@ -4979,10 +5005,6 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
         k = torch.randn((b, sk, kh, hd), generator=g, device=dev).to(dtype)
         v = torch.randn((b, sk, kh, hd), generator=g, device=dev).to(dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        # (q, k) pairs the mask keeps: causal aligned by Sk - Sq (Sq <= Sk
-        # here), or every pair
-        pairs = (sq * (sq + 1) // 2 + sq * (sk - sq)) if causal else sq * sk
-        flops = 4.0 * b * h * hd * pairs
         # q, k, v read once and o written once, in their dtype
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         return row(
@@ -4996,13 +5018,14 @@ def time_lm_kernels(dev, row, gen, zamba_scan: bool = True) -> list:
             f"{note} B={b} Sq={sq} Sk={sk} H={h} KH={kh} hd={hd} "
             f"{str(dtype).split('.')[1]} {'causal' if causal else 'not causal'}"
             f"; library F.scaled_dot_product_attention on (B, H, S, hd) "
-            f"copies", flops=flops,
-            peak=BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            f"copies", flops=flash_flops(b, sq, sk, h, hd, causal,
+                                         str(dtype).split(".")[1]))
 
     out.append(flash_row("flash_attention", torch.bfloat16,
                          (QWEN_B, QWEN_PROMPT, QWEN_PROMPT, 28, 4, 128, True),
                          "qwen2-7b prefill"))
     notes = {"detect_head": "detect head (a micro-batch of 8)",
+             "qwen2_7b_f32": "qwen2-7b prefill in float32",
              "zamba2_1p2b": "zamba2-1.2b shared block, prefill",
              "whisper_encoder": "whisper-tiny encoder self-attention",
              "whisper_decoder": "whisper-tiny decoder self-attention",
@@ -5164,14 +5187,25 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}")
 
+    t_lap = [t_start]
+
+    def lap(name: str) -> None:
+        """The host clock's seconds for the phase just ended."""
+        now = time.perf_counter()
+        print(f"host time, {name}: {now - t_lap[0]!r} s (total "
+              f"{now - t_start!r} s)")
+        t_lap[0] = now
+
     secs = _build.build_all()
     print(f"build: {secs!r} s wall for "
           + ", ".join(f"{k.name} {k.build_seconds!r} s" for k in
                       _build.KERNELS))
 
     dry = start_dry_run()              # phase 10e (c), on the host
+    lap("build")
     errs = check_kernels(dev)
     errs.update(check_lm_kernels(dev))
+    lap("kernel checks")
     cfg = full_config()
     print(f"main path: {cfg}, split {cfg.split_hw}x{cfg.split_hw}x"
           f"{cfg.split_p}, Q={cfg.split_q}, C={C}, bits={BITS}, rans, fused")
@@ -5182,35 +5216,49 @@ def main() -> int:
         print(f"stage {k}: {v * 1e3!r} ms per request")
     launches = dict(res["launches"])
     launches["cdf"] = cdf_path(dev, res["decoded"])["cdf"]
+    lap("BaF main path and cdf path")
     offline_path(dev, smi)
+    lap("offline side")
     serving_path(dev, smi)
+    lap("serving gateway")
     tasks = session_task_path(dev, smi)
+    lap("sessions and tasks")
     errs["flash_attention/detect_head"] = max(
         errs["flash_attention/detect_head"], tasks["detect_err"])
     launches["flash_attention/detect_head"] = tasks["detect_flash"]
     with torch.no_grad():              # the LM serving phases
         qwen = dense_lm_path(dev, "qwen2_7b", 0, 10)
+        lap("qwen2-7b")
         for arch, seed, token_seed in BIG_LMS:
             big = dense_lm_path(dev, arch, seed, token_seed,
                                 bf16_spread=BIG_LM_BF16_SPREAD)
             launches[f"flash_attention/{arch}"] = \
                 big["launches"]["flash_attention"]
+            lap(arch)
         rwkv = rwkv_path(dev)
+        lap("rwkv6-3b")
         launches["flash_attention"] = qwen["launches"]["flash_attention"]
+        launches["flash_attention/qwen2_7b_f32"] = \
+            qwen["launches32"]["flash_attention"]
         # the scan's two rows: its launches in the prefill and in the ingest
         launches["linear_scan"] = rwkv["n_prefill"]
         launches["linear_scan/ingest_block"] = rwkv["n_ingest"]
         launches.update(zoo_paths(dev))
+        lap("the zoo (phase 9b)")
         lms_card_vs_cpu(dev)
+        lap("LMs card vs CPU")
     errs["linear_scan/ingest_block"] = errs["linear_scan"]
     train_launches, loss1 = training_path(dev, errs)
     launches.update(train_launches)
+    lap("LM training (phase 10a)")
     pod = distributed_path(dev, loss1["zamba2_1p2b"], qwen)
     launches.update(pod["launches"])
     errs.update(pod["errs"])
     launches.update(mesh_path(dev, smi))
     cells_path(dev, smi, dry)
+    lap("phases 10b-10e")
     rows = time_kernels(dev, errs, launches, res["path_codes"], pod)
+    lap("kernel times")
     print(f"total {time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())

@@ -9,7 +9,9 @@ takes every ``Sq``/``Sk`` (it masks the ragged edge itself), reads the
 (B, S, H, hd) inputs through their strides and maps query head ``h`` to kv
 head ``h // (H // KH)``, so no repeat and no transpose is made. bf16 runs
 on the tensor cores (wgmma) and needs 16-byte-aligned bases and strides;
-the call raises on others. float32 runs on the CUDA cores.
+the call raises on others. float32 runs on the tensor cores too (mma.sync
+in 3xTF32: a TF32 high part and a remainder per operand, float32's
+accuracy) and takes any base and strides.
 
 Gradients: with grad mode on and q, k or v requiring grad, a CUDA call goes
 through ``_FlashAttention``, a ``torch.autograd.Function`` whose forward is

@@ -567,6 +567,84 @@ def test_flash_bf16_tensor_cores_every_head_dim(cuda, hd, shape):
                                rtol=3e-2)
 
 
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("shape", [(2, 200, 200, 8, 2, True, None),
+                                   (1, 77, 131, 4, 4, True, 50),
+                                   (1, 130, 70, 6, 2, False, None),
+                                   (1, 97, 97, 2, 1, False, 33)])
+def test_flash_f32_tensor_cores_every_head_dim(cuda, hd, shape):
+    """Every head dim through the float32 mma.sync kernel (3xTF32), causal,
+    windowed and GQA, with Sq and Sk off the 16-row warp tiles and the
+    64- and 32-key kv tiles: one launch a call, 2e-5."""
+    b, sq, sk, h, kh, causal, window = shape
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn((b, s, n, hd), generator=g, device=cuda)
+               for s, n in ((sq, h), (sk, kh), (sk, kh)))
+    before = _build.FLASH_ATTENTION.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("which", ["q", "k", "v", "all"])
+def test_flash_f32_reads_misaligned_inputs(cuda, hd, which):
+    """float32 q, k or v whose base is 4 bytes off a 16-byte boundary, or
+    whose strides are not multiples of 16 bytes: the kernel copies K and V
+    4 bytes at a time there, and still launches once, 2e-5."""
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    shape = (2, 150, 4, hd)
+
+    def aligned():
+        return torch.randn(shape, generator=g, device=cuda)
+
+    def shifted():                      # base 4 bytes off
+        flat = torch.randn(1 + math.prod(shape), generator=g, device=cuda)
+        return flat[1:].view(shape)
+
+    def padded():                       # head stride hd + 1 elements
+        return torch.randn(shape[:3] + (hd + 1,), generator=g,
+                           device=cuda)[..., :hd]
+
+    q, k, v = aligned(), aligned(), aligned()
+    if which == "all":
+        q, k, v = shifted(), padded(), shifted()
+    elif which == "q":
+        q = shifted()
+    elif which == "k":
+        k = shifted()
+    else:
+        v = padded()
+    before = _build.FLASH_ATTENTION.launches
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _build.FLASH_ATTENTION.launches == before + 1
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_flash_f32_propagates_nan_at_the_detect_heads_shape(cuda):
+    """One NaN in a q row, a k row and a v row at the detect head's shape
+    (not causal): NaN exactly where the plain version has it (the q row's
+    output row, every row of the k row's (b, head), the v entry's column
+    of its (b, head)), the rest within 2e-5."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn((8, 4096, 2, 16), generator=g, device=cuda)
+               for _ in range(3))
+    q[1, 100, 0, 3] = float("nan")
+    k[3, 2000, 1, 7] = float("nan")
+    v[5, 4095, 0, 12] = float("nan")
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=False)
+    assert bool(want.isnan().any())
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5,
+                               equal_nan=True)
+
+
 def test_flash_bf16_refuses_unaligned_inputs(cuda):
     """A base or a stride that is not a multiple of 16 bytes raises, and
     nothing is launched: no other kernel and no plain version takes over."""
