@@ -1,0 +1,6 @@
+"""The benchmark of the PyTorch and CUDA port (``repro_torch``) on an H100.
+
+``python portbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` once; see README.md.
+Nothing here imports JAX or the JAX package ``repro``.
+"""

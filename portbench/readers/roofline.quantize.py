@@ -1,0 +1,17 @@
+"""The quantize kernel's share of its bound: the bytes of a call at the
+cell's shapes (B=1, one request a call) over the HBM rate, against its
+mean device time a call from the trace."""
+from portbench import counts
+
+
+def read(ctx):
+    if ctx.trace is None:
+        return None
+    calls = ctx.trace.kernel_calls(ctx.kernels.get("quantize", set()))
+    if not calls:
+        return None
+    cfg = ctx.cfg
+    r = cfg["split_shape"][0] * cfg["split_shape"][1]
+    bound = counts.quantize_bytes(1, r, cfg["c"], cfg["bits"]) / \
+        ctx.peaks["hbm_bytes_per_s"]
+    return 100.0 * bound / (sum(calls) / len(calls))
