@@ -20,6 +20,7 @@ from repro_torch.core.quant import (QuantParams, compute_quant_params,
                                     dequantize, quantize)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.consolidate import consolidate_fused
+from repro_torch.obs import hooks
 
 
 @dataclass(frozen=True)
@@ -113,16 +114,26 @@ def check_device(device: torch.device, **modules) -> None:
 
 def to_device(x, device) -> torch.Tensor:
     """A numpy array (copied) or tensor as float32 on ``device``."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.array(x, np.float32))
-    return x.to(device, torch.float32)
+    with hooks.timed("split.to_device"):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x, np.float32))
+        return x.to(device, torch.float32)
 
 
 def cnn_fns(model):
     """The CNN's halves as the serving path calls them, bound once:
     ``edge(img) -> z`` and ``cloud(z) -> logits`` (the counterpart of the JAX
-    package's cached jitted pair; no compilation here)."""
-    return (lambda img: model.edge(img)[1]), model.cloud
+    package's cached jitted pair; no compilation here), timed as the
+    ``split.edge`` and ``split.cloud`` stages."""
+    def edge(img):
+        with hooks.timed("split.edge"):
+            return model.edge(img)[1]
+
+    def cloud(z):
+        with hooks.timed("split.cloud"):
+            return model.cloud(z)
+
+    return edge, cloud
 
 
 @torch.no_grad()

@@ -1,6 +1,7 @@
 """Observability for the serving stack, as in ``repro.obs``: deterministic
 virtual-clock traces (``trace``), mergeable metrics (``metrics``), stage
-hooks (``hooks``) and schema'd benchmark records (``bench``). Stdlib only.
+hooks (``hooks``) and schema'd benchmark records (``bench``). Stdlib only,
+but for the profiler ranges that ``hooks`` opens through torch.
 """
 from repro_torch.obs.bench import (SCHEMA_VERSION, bench_record, compare,
                                    format_report, load_bench, metric,

@@ -103,8 +103,9 @@ def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     back into numpy arrays. Pass wider element types first so every view
     stays aligned.
     """
-    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    buf = torch.cat(flat).cpu().numpy()
+    with hooks.timed("pipeline.to_host"):
+        flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+        buf = torch.cat(flat).cpu().numpy()
     out, off = [], 0
     for t, f in zip(tensors, flat):
         n = f.numel()
@@ -182,22 +183,26 @@ class CompressionPlan:
         """
         with hooks.timed("pipeline.encode", backend=self.op.wire_backend):
             if self.op.tiling == "tiled":
-                tiled = tile_batch(torch.from_numpy(codes)).numpy()
+                with hooks.timed("pipeline.tile"):
+                    tiled = tile_batch(torch.from_numpy(codes)).numpy()
                 stream = tiled.reshape(-1, tiled.shape[-1])
                 counts = None          # the chunk layout of a tiled stream
             else:
                 stream = codes
-            enc = wire.encode(stream, qp, backend=self.op.wire_backend,
-                              counts=counts)
+            with hooks.timed("codec.pack"):
+                enc = wire.encode(stream, qp, backend=self.op.wire_backend,
+                                  counts=counts)
             if raw_bits is None:
                 raw_bits = int(np.prod(codes.shape)) * 32
+            with hooks.timed("pipeline.entropy_count"):
+                entropy_bits = wire.empirical_entropy_bits(
+                    codes, self.op.bits, counts)
             stats = SplitStats(
                 total_bits=enc.total_bits(),
                 payload_bits=8 * len(enc.payload),
                 side_info_bits=8 * len(enc.side_info),
                 raw_bits=raw_bits,
-                entropy_bits=wire.empirical_entropy_bits(
-                    codes, self.op.bits, counts),
+                entropy_bits=entropy_bits,
                 wire_bits=enc.wire_bits(),
             )
             return WireBlob(data=enc.to_bytes(), op=self.op,
@@ -253,19 +258,20 @@ class CompressionPlan:
             raise ValueError("decode_batch needs at least one blob")
         with hooks.timed("pipeline.decode_batch",
                          backend=self.op.wire_backend):
-            hooks.observe("pipeline_decode_batch_size", len(blobs))
             shape = tuple(blobs[0].shape)
             for blob in blobs:
                 self._check_blob(blob, shape)
-            encs = [wire.EncodedTensor.from_bytes(b.data) for b in blobs]
-            streams, qps = wire.decode_many(encs)
+            with hooks.timed("codec.unpack"):
+                encs = [wire.EncodedTensor.from_bytes(b.data) for b in blobs]
+                streams, qps = wire.decode_many(encs)
             n = len(blobs)
             b, h, w, c = shape
             if self.op.tiling == "tiled":
                 rows, cols = tile_grid(c)
-                codes = untile_batch(torch.from_numpy(
-                    streams.reshape(n * b, rows * h, cols * w)), c)
-                codes = codes.contiguous().numpy()
+                with hooks.timed("pipeline.untile"):
+                    codes = untile_batch(torch.from_numpy(
+                        streams.reshape(n * b, rows * h, cols * w)), c)
+                    codes = codes.contiguous().numpy()
             else:
                 codes = streams.reshape(n * b, h, w, c)
             mins = np.stack([np.asarray(qp.mins, np.float16) for qp in qps])
@@ -276,12 +282,16 @@ class CompressionPlan:
 
     # -- restore (cloud side, device) ---------------------------------------
     def restore(self, decoded: DecodedBatch) -> torch.Tensor:
-        """Dequantize + BaF restore on the plan's device -> z~ (N, H, W, P)."""
+        """Dequantize + BaF restore on the plan's device -> z~ (N, H, W, P).
+
+        Its ``pipeline.restore`` stage times the enqueue on the host; the
+        card's time is that of the operations launched inside it."""
         with hooks.timed("pipeline.restore", fused=self.fused):
-            codes = torch.from_numpy(
-                np.ascontiguousarray(decoded.codes)).to(self.device)
-            mins = torch.from_numpy(decoded.mins).to(self.device)
-            maxs = torch.from_numpy(decoded.maxs).to(self.device)
+            with hooks.timed("pipeline.h2d"):
+                codes = torch.from_numpy(
+                    np.ascontiguousarray(decoded.codes)).to(self.device)
+                mins = torch.from_numpy(decoded.mins).to(self.device)
+                maxs = torch.from_numpy(decoded.maxs).to(self.device)
             return self.restore_device(codes, mins, maxs)
 
     def restore_device(self, codes: torch.Tensor, mins: torch.Tensor,

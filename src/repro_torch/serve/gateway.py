@@ -61,6 +61,7 @@ from repro_torch import pipeline
 from repro_torch.core.split import (SplitStats, activation_stats,
                                     check_device, cnn_fns, to_device)
 from repro_torch.device import resolve_device
+from repro_torch.obs import hooks
 from repro_torch.pipeline import (Capabilities, ModelSpec, OperatingPoint,
                                   negotiate)
 from repro_torch.serve.batcher import EncodedRequest, MicroBatch, MicroBatcher
@@ -221,15 +222,16 @@ class ServingGateway:
         The blob is serialized here — the channel meters its true byte
         length (container header + side info + entropy-coded payload).
         """
-        op = self._pick_op(t_submit)
-        plan = self.plan_for(op)
-        z = self._edge_fn(self._to_device(img))
-        blob = plan.encode(z)
-        if self.channel is not None:
-            tx = self.channel.transmit_bytes(blob.data, t_submit)
-        else:
-            tx = Transmission(bits=8 * blob.nbytes, t_submit=t_submit,
-                              t_start=t_submit, t_arrive=t_submit)
+        with hooks.timed("gateway.encode_request"):
+            op = self._pick_op(t_submit)
+            plan = self.plan_for(op)
+            z = self._edge_fn(self._to_device(img))
+            blob = plan.encode(z)
+            if self.channel is not None:
+                tx = self.channel.transmit_bytes(blob.data, t_submit)
+            else:
+                tx = Transmission(bits=8 * blob.nbytes, t_submit=t_submit,
+                                  t_start=t_submit, t_arrive=t_submit)
         return op, blob, blob.stats, tx
 
     # -- cloud side ---------------------------------------------------------
@@ -248,9 +250,12 @@ class ServingGateway:
         # repro_torch: allow[RA01] -- warm-timing helper: measures real
         # compute wall for the cost model, never replayed state
         t0 = time.perf_counter()
-        decoded = plan.decode_batch([r.blob for r in batch.requests])
-        z_tilde = plan.restore(decoded.pad_to(batch.padded_size))
-        logits = self._cloud_fn(z_tilde).cpu().numpy()
+        with hooks.timed("gateway.run_batch"):
+            decoded = plan.decode_batch([r.blob for r in batch.requests])
+            z_tilde = plan.restore(decoded.pad_to(batch.padded_size))
+            out = self._cloud_fn(z_tilde)
+            with hooks.timed("gateway.to_host"):
+                logits = out.cpu().numpy()
         # repro_torch: allow[RA01] -- warm-timing helper (see t0 above)
         return logits, time.perf_counter() - t0
 
@@ -265,8 +270,10 @@ class ServingGateway:
         # repro_torch: allow[RA01] -- warm-timing helper: measures real
         # compute wall for the cost model, never replayed state
         t0 = time.perf_counter()
-        decoded = plan.decode_batch([r.blob for r in batch.requests])
-        logits = self.executor.run_sharded(plan, decoded, batch.padded_size)
+        with hooks.timed("gateway.run_batch"):
+            decoded = plan.decode_batch([r.blob for r in batch.requests])
+            logits = self.executor.run_sharded(plan, decoded,
+                                               batch.padded_size)
         # repro_torch: allow[RA01] -- warm-timing helper (see t0 above)
         return logits, time.perf_counter() - t0
 
