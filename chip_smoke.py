@@ -10,7 +10,7 @@ package ``repro``. Phases, each printing lines before the last:
   1. device: card name and power limit, torch and CUDA versions, TF32 flags
      (both set to False, so float32 convolutions and matmuls are full
      float32);
-  2. build: the six kernels of ``src/repro_torch/csrc``, one nvcc each,
+  2. build: the seven kernels of ``src/repro_torch/csrc``, one nvcc each,
      all started together;
   3. kernels against their plain torch versions on the card: the BaF
      kernels at the slice's shapes (B=8, R=64*64, P=256, C=64, bits=8) plus
@@ -36,7 +36,10 @@ package ``repro``. Phases, each printing lines before the last:
      and ingest block at chunk 128 with a (B, S, H, 1) decay, a
      per-channel decay at chunk 128 in both modes; chunk 32 and zamba2's
      chunk of 128 at the decay clamp, NaN where the plain version has
-     NaN);
+     NaN); the served restore's conv kernel (``baf_conv``) at the five
+     conv shapes of both configurations at B=8 (the x2 transposed ``up`` at
+     C=64 and 96, ``c2``/``c3``, ``c4``, the split conv with BN) against
+     its plain version (nn.py's ops on cuDNN, TF32 off);
   4. the BaF main path at the paper's full width (YOLO front at 512x512,
      split tensor 64x64x256, C=64, 8 bits, static rANS, fused restore):
      eight one-image requests through edge -> plan.encode ->
@@ -44,9 +47,10 @@ package ``repro``. Phases, each printing lines before the last:
      counts read over this phase alone; the histogram kernel held exact
      against its plain version on the path's own codes, and the
      consolidate kernel bit for bit on the path's own estimate; the restore
-     checked against the plan compiled with fused=False (and bit for bit
-     with cudnn.deterministic) and against the same path run on the CPU for
-     the first request; then ``channel_histogram_cdf`` on each request's
+     (five ``baf_conv`` launches, counted by shape) checked against the
+     plan compiled with
+     fused=False (cuDNN's convolutions), bit for bit against itself rerun,
+     and against the same path run on the CPU for the first request; then ``channel_histogram_cdf`` on each request's
      decoded codes (the cdf kernel's path), exact against numpy, and its
      device operations per request from the profiler: the histogram and
      cdf kernels and three copies, nothing else;
@@ -229,7 +233,11 @@ package ``repro``. Phases, each printing lines before the last:
      (``quantize/pod_stream``, ``quantize/pod_subset``), consolidate at the
      subset's shape (``consolidate/pod_subset``); the rows ``quantize/mesh``,
      ``histogram/mesh`` and ``consolidate/mesh`` carry phase 10d's launches
-     beside the main path's times (the same shapes).
+     beside the main path's times (the same shapes); ``baf_conv`` at its
+     five conv shapes for B=8 and 32 (``baf_conv/<conv>_b<B>``), each
+     checked against its plain version at that shape, with its launches in
+     phase 4's restore (0 where no phase runs the shape) and one cuDNN call
+     beside it, timed between CUDA events.
 
 Then one JSON line with every kernel's numbers, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any failed
@@ -255,13 +263,24 @@ TF32_FLOPS = 495e12              # dense TF32 tensor-core peak, same sheet
 F32_FLOPS = 67e12                # float32 outside the tensor cores
 B, R, P, C, BITS = 8, 64 * 64, 256, 64, 8
 HIDDEN = 64                      # width of the BaF predictor
-# The fused and fused=False restores run the same convolutions. With cuDNN's
-# default algorithms two runs need not agree to the bit, so the restores of
-# the main path are held at the CPU parity tests' 1e-4, and bit for bit when
-# rerun with cudnn.deterministic. Card against CPU: 1e-3. Relative and
+# The fused restore runs its convolutions on the baf_conv kernel (3xTF32),
+# the fused=False restore on cuDNN (float32, TF32 off): the two are held at
+# the CPU parity tests' 1e-4, and the kernel's restore bit for bit against
+# itself rerun (it has no atomics). Card against CPU: 1e-3. Relative and
 # absolute.
 RESTORE_TOL = 1e-4
 CPU_TOL = 1e-3
+# The restore's convolutions at the path's shapes, (label, H = W of the
+# input, Cin, Cout, stride, transposed, epilogue): c3 has c2's shape, C=96
+# changes only up. The baf_conv kernel against its plain version (nn.py's
+# ops on cuDNN, float32, TF32 off): 2e-5 relative and absolute, the float32
+# flash kernel's tolerance (3xTF32 keeps each product within ~2^-20).
+BAF_CONVS = (("up_c64", 64, 64, HIDDEN, 2, True, "prelu"),
+             ("up_c96", 64, 96, HIDDEN, 2, True, "prelu"),
+             ("c2_c3", 128, HIDDEN, HIDDEN, 1, False, "prelu"),
+             ("c4", 128, HIDDEN, 128, 1, False, "bias"),
+             ("split", 128, 128, P, 2, False, "bn"))
+BAF_CONV_TOL = 2e-5
 # Kernel against plain version: flash 2e-5 (f32) and 3e-2 (bf16), the JAX
 # kernel tests' tolerances; the linear scan 1e-4 (float32 sums in another
 # order over 16-step chunks); cdf exact; consolidate bit for bit, NaN where
@@ -644,6 +663,7 @@ def check_kernels(dev) -> dict:
             raise AssertionError("consolidate kernel differs from plain")
         return err
 
+    errs["baf_conv"] = check_baf_conv(dev)
     errs["consolidate"] = max(consolidate_case(B, R, P, C, BITS),
                               consolidate_case(B, R, P, C, BITS, table=True),
                               consolidate_case(3, 1000, 40, 40, 3),
@@ -653,6 +673,61 @@ def check_kernels(dev) -> dict:
                               consolidate_case(2, R, P, C, 12, nan="both",
                                                table=True))
     return errs
+
+
+def baf_conv_inputs(dev, b, conv, gen):
+    """x (b, H, H, Cin) ~ N(0, 1), a He-normal weight and the epilogue's
+    vectors (PReLU slopes in [0, 0.5), BN statistics off identity) of one
+    of BAF_CONVS -> (x, weight, keyword arguments of ``baf_conv``)."""
+    import torch
+    from repro_torch.nn import he_normal
+
+    _, h, cin, cout, stride, transposed, kind = conv
+    x = torch.randn((b, h, h, cin), generator=gen).to(dev)
+    w = he_normal((cout, cin, 3, 3), 9 * cin, gen).to(dev)
+    kw = dict(stride=stride, transposed=transposed, bias=None, alpha=None,
+              bn=None)
+    if kind != "bn":
+        kw["bias"] = (0.1 * torch.randn((cout,), generator=gen)).to(dev)
+    if kind == "prelu":
+        kw["alpha"] = (0.5 * torch.rand((cout,), generator=gen)).to(dev)
+    if kind == "bn":
+        kw["bn"] = {k: v.to(dev) for k, v in {
+            "mean": 0.1 * torch.randn((cout,), generator=gen),
+            "var": torch.rand((cout,), generator=gen) + 0.5,
+            "scale": torch.rand((cout,), generator=gen) + 0.5,
+            "bias": 0.1 * torch.randn((cout,), generator=gen)}.items()}
+    return x, w, kw
+
+
+def check_baf_conv(dev) -> float:
+    """The baf_conv kernel against its plain version at BAF_CONVS, B=8:
+    one launch a call, BAF_CONV_TOL."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.baf_conv import baf_conv, baf_conv_plain
+
+    gen = torch.Generator().manual_seed(30)
+    err = 0.0
+    for conv in BAF_CONVS:
+        x, w, kw = baf_conv_inputs(dev, B, conv, gen)
+        before = _build.BAF_CONV.launches
+        with torch.no_grad():
+            got = baf_conv(x, w, **kw)
+            sync(dev)
+            want = baf_conv_plain(x, w, **kw)
+        ok = _build.BAF_CONV.launches - before == 1 and torch.allclose(
+            got, want, rtol=BAF_CONV_TOL, atol=BAF_CONV_TOL)
+        diff = max_abs_diff([(got, want)])
+        err = max(err, diff)
+        print(f"baf_conv {conv[0]} B={B} {tuple(x.shape)} -> "
+              f"{tuple(got.shape)} ({conv[6]}): kernel vs plain max abs diff "
+              f"{diff!r}, max |plain| {float(want.abs().max())!r} "
+              f"(tolerance {BAF_CONV_TOL} relative and absolute): "
+              f"{'yes' if ok else 'NO'}")
+        if not ok:
+            raise AssertionError("baf_conv kernel differs from plain version")
+    return err
 
 
 def histogram_case(dev, codes, nsym, label, plan=None) -> float:
@@ -1016,6 +1091,35 @@ def run_requests(dev, model, plan, imgs, registry):
     return blobs, decoded, z_tilde, logits, times
 
 
+@contextlib.contextmanager
+def baf_conv_calls():
+    """{``baf_conv/<conv>_b<B>``: the served restore's calls of the baf_conv
+    wrapper at that shape of BAF_CONVS and batch} while the block runs,
+    counted where ``core/split`` calls the wrapper. A call at a shape
+    BAF_CONVS lacks raises."""
+    from repro_torch.core import split
+
+    counts = {f"baf_conv/{c[0]}_b{b}": 0 for b in (B, 32) for c in BAF_CONVS}
+    wrapped = split.baf_conv
+
+    def counted(x, weight, bias=None, *, stride=1, transposed=False, **kw):
+        b, h, _, cin = x.shape
+        key = (h, cin, weight.shape[0], stride, transposed)
+        label = [c[0] for c in BAF_CONVS if c[1:6] == key]
+        if not label:
+            raise AssertionError(f"baf_conv call at {key}, not in BAF_CONVS")
+        name = f"baf_conv/{label[0]}_b{b}"
+        counts[name] = counts.get(name, 0) + 1
+        return wrapped(x, weight, bias, stride=stride, transposed=transposed,
+                       **kw)
+
+    split.baf_conv = counted
+    try:
+        yield counts
+    finally:
+        split.baf_conv = wrapped
+
+
 def check_consolidate_on_path(dev, model, baf, sel_idx, decoded, *,
                               bits: int = BITS) -> float:
     """The consolidate kernel against its plain version on a path's own
@@ -1065,14 +1169,18 @@ def main_path(dev, cfg) -> dict:
     run_requests(dev, model, plan, imgs, MetricsRegistry())
 
     _build.reset_launches()
-    blobs, decoded, z_tilde, logits, times = run_requests(
-        dev, model, plan, imgs, MetricsRegistry())
+    with baf_conv_calls() as by_shape:
+        blobs, decoded, z_tilde, logits, times = run_requests(
+            dev, model, plan, imgs, MetricsRegistry())
     launches = {k.name: k.launches for k in _build.KERNELS}
-    print(f"main path launches: {launches}")
+    print(f"main path launches: {launches}; baf_conv by shape: {by_shape}")
     n = imgs.shape[0]
     if not (launches["quantize"] == n and launches["histogram"] == n
-            and launches["consolidate"] >= 1):
-        raise AssertionError(f"main path did not run its kernels: {launches}")
+            and launches["consolidate"] >= 1 and launches["baf_conv"] == 5
+            and sum(by_shape.values()) == launches["baf_conv"]):
+        raise AssertionError(f"main path did not run its kernels: {launches}, "
+                             f"baf_conv by shape {by_shape}")
+    launches.update(by_shape)
 
     # checks, after the counts were read
     for i, blob in enumerate(blobs):
@@ -1095,15 +1203,12 @@ def main_path(dev, cfg) -> dict:
           f"relative and absolute)")
     if not torch.allclose(z_tilde, ref, rtol=RESTORE_TOL, atol=RESTORE_TOL):
         raise AssertionError("fused and plain restore disagree")
-    torch.backends.cudnn.deterministic = True
-    det, det_ref = plan.restore(decoded), plan_ref.restore(decoded)
-    torch.backends.cudnn.deterministic = False
-    same = bits_equal(det, det_ref)
-    print(f"with cudnn.deterministic: fused vs fused=False restore "
-          f"{'bit-identical' if same else 'DIFFER'} (max abs diff "
-          f"{max_abs_diff([(det, det_ref)])!r})")
+    again = plan.restore(decoded)
+    same = bits_equal(again, z_tilde)
+    print(f"fused restore rerun: {'bit-identical' if same else 'DIFFERS'} "
+          f"(max abs diff {max_abs_diff([(again, z_tilde)])!r})")
     if not same:
-        raise AssertionError("deterministic fused and plain restore differ")
+        raise AssertionError("the baf_conv restore differs when rerun")
     if tuple(logits.shape) != (n, cfg.num_classes) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"bad logits {tuple(logits.shape)}")
@@ -1583,7 +1688,7 @@ def serving_path(dev, smi: str) -> None:
           f"telemetry {n_batches}, executor tickets {len(seen)}, sizes "
           f"{[(len(b.requests), b.padded_size) for b, _ in seen]}")
     want = {"quantize": SERVE_N, "histogram": SERVE_N,
-            "consolidate": n_batches}
+            "consolidate": n_batches, "baf_conv": 5 * n_batches}
     if {k: v for k, v in launches.items() if v} != want or \
             n_batches != len(seen):
         raise AssertionError(f"the serve launched {launches}, not {want}")
@@ -1963,7 +2068,7 @@ def session_manager_path(dev, smi, model, bank, cfg) -> None:
           f"{(peak - held) / 1e9!r} GB above what earlier phases held; "
           f"final levels {rep.final_levels}")
     want = {"quantize": encoded, "histogram": encoded,
-            "consolidate": len(batches)}
+            "consolidate": len(batches), "baf_conv": 5 * len(batches)}
     if logged != offered + rep.settle_frames or \
             any(tr.in_desync for tr in rep.recovery.values()) or \
             worst > 2 * bound or \
@@ -2055,11 +2160,12 @@ def task_path(dev, smi, model, bank, cfg) -> dict:
         print(f"  {task}: " + "; ".join(
             f"C={p.op.c} {p.op.bits}b {p.bits_per_example!r} bits "
             f"{p.psnr_db!r} dB" for p in pts))
-    # one encode per image and point, one restore (consolidate) and one
-    # detect-head call (flash) per point, and the reference's flash call
+    # one encode per image and point, one restore (consolidate, five convs)
+    # and one detect-head call (flash) per point, and the reference's flash
+    # call
     want = {"quantize": len(ops) * SERVE_CALIB,
             "histogram": len(ops) * SERVE_CALIB, "consolidate": len(ops),
-            "flash_attention": len(ops) + 1}
+            "baf_conv": 5 * len(ops), "flash_attention": len(ops) + 1}
     if {k: v for k, v in sweep.items() if v} != want or not all(
             np.isfinite([p.psnr_db, p.bits_per_example]).all()
             for pts in tables.values() for p in pts):
@@ -2115,6 +2221,7 @@ def task_path(dev, smi, model, bank, cfg) -> dict:
             any(n > gw.decode_calls for n in gw.head_calls.values()) or \
             launches["flash_attention"] != gw.head_calls.get("detect", 0) or \
             launches["consolidate"] != len(seen) or \
+            launches["baf_conv"] != 5 * len(seen) or \
             launches["quantize"] != TASK_N or \
             not mean_bits["lite"] < mean_bits["full"] or \
             ops_used != {"full": [(full_pick.op.c, full_pick.op.bits)],
@@ -4254,7 +4361,8 @@ def mesh_path(dev, smi: str) -> dict:
           f"{body_ms / shape[0]!r} ms an item (CUDA events, launch "
           f"included)")
     if not (est["flops"] > 0 and cal.seed_per_item_s > 0 and [
-            k["name"] for k in est["kernels"]] == ["consolidate"]):
+            k["name"] for k in est["kernels"]] == ["baf_conv"] * 5
+            + ["consolidate"]):
         raise AssertionError(f"restore + cloud program cost: {est}")
 
     # (a) one card as the mesh: the serial tier calibrates, the mesh serves
@@ -4289,7 +4397,7 @@ def mesh_path(dev, smi: str) -> dict:
           f"per item {cal.per_item_s!r} s over {len(cal.samples)} samples; "
           f"logits bit-identical to the SerialExecutor gateway's: {same}")
     want = {"quantize": SERVE_N, "histogram": SERVE_N,
-            "consolidate": len(seen_m)}
+            "consolidate": len(seen_m), "baf_conv": 5 * len(seen_m)}
     if {k: v for k, v in launches.items() if v} != want:
         raise AssertionError(f"the mesh serve launched {launches}, not {want}")
     check_served(resp_m, seen_m, cfg.num_classes, SERVE_N)
@@ -4436,8 +4544,8 @@ def quickstart_card_vs_cpu(dev) -> None:
           f"identical {same}; z~ max abs diff {gap!r} (tolerance {tol!r}); "
           f"launches {launches}")
     if not same or gap > tol or not card["inside"] or \
-            {k: v for k, v in launches.items() if v} != {"quantize": 1,
-                                                          "consolidate": 1}:
+            {k: v for k, v in launches.items() if v} != {
+                "quantize": 1, "consolidate": 1, "baf_conv": 5}:
         raise AssertionError("the quickstart disagrees between card and CPU")
 
 
@@ -4799,17 +4907,17 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes, pod) -> list:
     rows = []
 
     def row(name, src, replaces, kernel, plain, nbytes, library, note,
-            flops=0.0, peak=F32_FLOPS):
+            flops=0.0, peak=F32_FLOPS, clock="from the profiler"):
         """``flops`` at ``peak``, or a list of (flops, peak) terms whose
-        times add up."""
+        times add up. ``clock``: where the device times come from."""
         terms = flops if isinstance(flops, list) else [(flops, peak)]
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_ops = sum(f / p for f, p in terms) * 1e3
         bound = max(by_bytes, by_ops)
         lib = None if library is None else library[0]
         ops = " + ".join(f"{f!r} flops at {p:g}/s" for f, p in terms)
-        print(f"time {name} ({note}): device time per call, from the "
-              f"profiler: kernel {kernel[0]!r} ms, plain {plain[0]!r} ms, "
+        print(f"time {name} ({note}): device time per call, {clock}: "
+              f"kernel {kernel[0]!r} ms, plain {plain[0]!r} ms, "
               f"library {lib!r} ms; bound {bound!r} ms ({nbytes} bytes -> "
               f"{by_bytes!r} ms; {ops} -> {by_ops!r} "
               f"ms); per call between CUDA events, launch included: kernel "
@@ -4895,6 +5003,7 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes, pod) -> list:
                     f"plan's channel table; the kernel reads and writes "
                     f"{c8[3]} bytes of 32-byte sectors of z"))
     rows += time_cdf(dev, row, gen)
+    rows += time_baf_conv(dev, row, errs, launches)
     rows += time_lm_kernels(dev, row, gen)
     rows += time_pod_kernels(row, pod)
     # the compressed step's launches of flash and the scan, at the training
@@ -4909,6 +5018,78 @@ def time_kernels(dev, errs: dict, launches: dict, path_codes, pod) -> list:
         rows.append(dict(next(r for r in rows if r["name"] == base),
                          name=base + "/mesh", launches=launches[base + "/mesh"]))
     return rows
+
+
+def time_baf_conv(dev, row, errs: dict, launches: dict) -> list:
+    """baf_conv at BAF_CONVS for B=8 and 32 (``baf_conv/<conv>_b<B>``: its
+    launches on the main path, 0 at the shapes no path of this script runs;
+    its error against the plain version at that shape and batch), beside
+    its plain version and one cuDNN call
+    (``F.conv2d`` on the padded channels_last view, as nn.py pads it, or
+    ``F.conv_transpose2d``); bound: its products at 3xTF32's 165 TFLOP/s.
+
+    Times between CUDA events around 50 back-to-back calls: each call keeps
+    the card busy for 0.05 ms or more, so the host's launches hide behind
+    it. The profiler only counts each call's device operations here: this
+    late in the run its sessions lost cuDNN's kernels (a 1.26 ms call read
+    0.05 ms, one operation of seven) and read the kernel at half its
+    time, where a run of these rows alone agreed with the events."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.baf_conv import (baf_conv, baf_conv_cost,
+                                              baf_conv_plain)
+    from repro_torch.nn import _same_pads
+
+    def clocked(fn):
+        return (event_ms(fn),) * 2 + (device_ms(fn)[1],)
+
+    gen = torch.Generator().manual_seed(31)
+    out = []
+    for b in (B, 32):
+        for conv in BAF_CONVS:
+            label, h, cin, cout, stride, transposed, kind = conv
+            x, w, kw = baf_conv_inputs(dev, b, conv, gen)
+            xc = x.permute(0, 3, 1, 2)
+            if transposed:
+                wt = w.flip(-2, -1).transpose(0, 1)
+
+                def library():
+                    return F.conv_transpose2d(xc, wt, kw["bias"], stride=2)
+            else:
+                pt, pb = _same_pads(h, 3, stride)
+                xp = F.pad(xc, (pt, pb, pt, pb))
+
+                def library():
+                    return F.conv2d(xp, w, kw["bias"], stride=stride)
+            flops, nbytes = baf_conv_cost(x, w, **kw)
+            name = f"baf_conv/{label}_b{b}"
+            launches[name] = launches.get(name, 0)
+            with torch.no_grad():
+                got = baf_conv(x, w, **kw)
+                want = baf_conv_plain(x, w, **kw)
+            errs[name] = max_abs_diff([(got, want)])
+            print(f"baf_conv {label} B={b}: kernel vs plain max abs diff "
+                  f"{errs[name]!r} (tolerance {BAF_CONV_TOL} relative and "
+                  f"absolute); {launches[name]} launches on the main path")
+            if not torch.allclose(got, want, rtol=BAF_CONV_TOL,
+                                  atol=BAF_CONV_TOL):
+                raise AssertionError(f"baf_conv kernel differs from plain "
+                                     f"version at {name}")
+            with torch.no_grad():
+                kernel = clocked(lambda: baf_conv(x, w, **kw))
+                plain = clocked(lambda: baf_conv_plain(x, w, **kw))
+                lib = clocked(library)
+            out.append(row(
+                name, "src/repro_torch/csrc/baf_conv.cu",
+                "none (XLA's convolutions; cuDNN on this path before)",
+                kernel, plain, nbytes, lib,
+                f"B={b} {h}x{h}x{cin} -> {cout}, stride {stride}"
+                f"{', transposed' if transposed else ''}, {kind}; library "
+                f"one cuDNN call, float32, TF32 off",
+                flops=flops, peak=TF32_FLOPS / 3,
+                clock="between CUDA events (device operations from the "
+                      "profiler)"))
+    return out
 
 
 def time_cdf(dev, row, gen) -> list:

@@ -15,10 +15,11 @@ import numpy as np
 import torch
 
 from repro_torch import nn as tnn
-from repro_torch.core.baf import baf_conv_predict
+from repro_torch.core.baf import baf_conv_predict, gather_bn
 from repro_torch.core.quant import (QuantParams, compute_quant_params,
                                     dequantize, quantize)
 from repro_torch.device import resolve_device
+from repro_torch.kernels.baf_conv import baf_conv
 from repro_torch.kernels.consolidate import consolidate_fused
 from repro_torch.obs import hooks
 
@@ -78,11 +79,29 @@ def restore_codes(baf, split, sel_idx, codes, mins, maxs, *, bits: int,
                             qp=qp if consolidation else None)
 
 
+def restore_convs(baf, split, sel_idx, z_hat_sel) -> torch.Tensor:
+    """``baf_conv_predict`` without consolidation, for the served restore:
+    the inverse BN in plain torch, then the five convolutions (the x2
+    transposed ``up``, ``c2``, ``c3``, ``c4``, the split conv with its BN)
+    through ``kernels.baf_conv`` (the kernel on the card, the layers' own
+    ops on the CPU). No gradient: the trainer calls ``baf_conv_predict``."""
+    bn = split.bn.params()
+    x = tnn.batchnorm_inverse(gather_bn(bn, sel_idx), z_hat_sel)
+    x = baf_conv(x, baf.up.weight, baf.up.bias, stride=2, transposed=True,
+                 alpha=baf.up_act.alpha)
+    x = baf_conv(x, baf.c2.weight, baf.c2.bias, alpha=baf.c2_act.alpha)
+    x = baf_conv(x, baf.c3.weight, baf.c3.bias, alpha=baf.c3_act.alpha)
+    x = baf_conv(x, baf.c4.weight, baf.c4.bias)
+    return baf_conv(x, split.conv.weight, split.conv.bias, stride=2, bn=bn)
+
+
 @torch.no_grad()
 def restore_codes_fused(baf, split, sel_idx, codes, mins, maxs, *,
                         bits: int, order=None) -> torch.Tensor:
-    """Same math as ``restore_codes(consolidation=True)``, with eq. (6) run
-    by the consolidate kernel (its plain version for CPU tensors).
+    """Same math as ``restore_codes(consolidation=True)``, with the
+    convolutions on the ``baf_conv`` kernel (:func:`restore_convs`) and
+    eq. (6) run by the consolidate kernel (their plain versions for CPU
+    tensors).
 
     The kernel clips the transmitted channels of the full estimate z~ in
     place, so the ``z~[..., sel_idx]`` gather and the scatter back are part
@@ -92,7 +111,7 @@ def restore_codes_fused(baf, split, sel_idx, codes, mins, maxs, *,
     """
     qp = QuantParams(mins, maxs, bits)
     z_hat_sel = dequantize(codes, qp)
-    z_tilde = baf_conv_predict(baf, split, sel_idx, z_hat_sel).contiguous()
+    z_tilde = restore_convs(baf, split, sel_idx, z_hat_sel).contiguous()
     b, h, w, p = z_tilde.shape
     c = codes.shape[-1]
     consolidate_fused(z_tilde.view(b, h * w, p),

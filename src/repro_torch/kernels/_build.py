@@ -173,8 +173,15 @@ LINEAR_SCAN = CudaKernel("linear_scan", "linear_scan.cu", {
     "linear_scan_f32": _SCAN_ARGS,
     "linear_scan_bf16": _SCAN_ARGS,
 })
+BAF_CONV = CudaKernel("baf_conv", "baf_conv.cu", {
+    # x, weights (prepared), bias, alpha, BN mean, var, scale, shift, out
+    # (each nullable but x, weights, out); B, H, W, Cin, Cout, stride,
+    # pad_t, pad_l, transposed; device, stream
+    "baf_conv_f32": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                     I, P],
+})
 KERNELS = (QUANTIZE, HISTOGRAM, CONSOLIDATE, CDF, FLASH_ATTENTION,
-           LINEAR_SCAN)
+           LINEAR_SCAN, BAF_CONV)
 
 
 def build_all() -> float:

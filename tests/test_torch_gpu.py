@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import histogram as hist_kernel
 from repro_torch.kernels import quantize as quant_kernel
+from repro_torch.kernels.baf_conv import baf_conv
 from repro_torch.kernels.consolidate import consolidate_fused, consolidate_plain
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
@@ -1051,9 +1052,11 @@ def test_kernels_count_their_launches(cuda):
     q = torch.ones((1, 64, 2, 16), device=cuda)
     flash_attention(q, q, q)
     linear_scan(q, q, q, -q, chunk=16)
+    baf_conv(torch.ones((1, 4, 4, 8), device=cuda),
+             torch.ones((16, 8, 3, 3), device=cuda))
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(_build.KERNELS, before)] == \
-        [1, 1, 1, 1, 1, 1]
+        [1, 1, 1, 1, 1, 1, 1]
 
 
 def test_baf_loss_runs_the_quantize_kernel_once_a_call(cuda):
@@ -1154,7 +1157,8 @@ def test_serving_gateway_on_the_card_matches_the_cpu(cuda):
                                             _) = runs
     assert wire == cwire and sizes == csizes == [3, 1] and recs == crecs
     assert launches == {"quantize": 4, "histogram": 4, "consolidate": 2,
-                        "cdf": 0, "flash_attention": 0, "linear_scan": 0}
+                        "cdf": 0, "flash_attention": 0, "linear_scan": 0,
+                        "baf_conv": 10}
     np.testing.assert_allclose(logits, clogits, rtol=1e-3, atol=1e-3)
 
 
@@ -1194,7 +1198,8 @@ def test_session_clip_on_the_card_matches_the_cpu(cuda, bits):
     assert intra == [True, False, False, False] * 2 + [True, False]
     assert all(np.array_equal(a, b) for a, b in zip(codes, ccodes))
     assert launches == {"quantize": 10, "histogram": 10, "consolidate": 0,
-                        "cdf": 0, "flash_attention": 0, "linear_scan": 0}
+                        "cdf": 0, "flash_attention": 0, "linear_scan": 0,
+                        "baf_conv": 0}
 
 
 def test_detect_head_on_the_card_matches_the_cpu(cuda):
