@@ -312,7 +312,7 @@ def main(argv=None) -> int:
     out["requests_per_s"]["traced"] = win.completed / win.seconds
     st.release()
     ctx = bench.Context(cell.cfg, cell.traffic, win, tr, registry, 0.0,
-                        {}, trace.port_kernels())
+                        {}, trace.port_kernels(), cell.family)
     out["traced"] = summary(ctx)
     print(f"unattributed share of device-operation time: "
           f"{100 * out['traced']['unattributed_share']!r}%", file=sys.stderr)

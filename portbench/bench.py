@@ -1,13 +1,16 @@
 """One run of one cell: set-up, the measured window, the check against the
 plain reference, and the result line's fields.
 
-Set-up (counted in ``setup_s`` from the start of ``run.py``): the seeded
-weights and frames on the device, the port's objects, the clients' blobs
-(cloud cells), and one round of the cell's own traffic, which builds the
-kernels and warms cuDNN at exactly the window's shapes. Then the window
-runs for ``seconds``; with ``trace`` it runs under ``torch.profiler`` with
-the program's ``obs.hooks`` timers installed. After it the program's
-state is freed and the reference judges the answers.
+A cell's configuration names its family (``families/<family>.py``); set-up
+and the check call the family's functions (``portbench/README.md``, "a
+model family"). Set-up (counted in ``setup_s`` from the start of
+``run.py``): the family's seeded inputs, the port's objects, the clients'
+work before the window, and one round of the cell's own traffic, which
+builds the kernels and warms the libraries at exactly the window's shapes.
+Then the window runs for ``seconds``; with ``trace`` it runs under
+``torch.profiler`` with the program's ``obs.hooks`` timers installed.
+After it the program's state is freed and the reference judges the
+answers.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
-from portbench import inputs, judge, loops, spec, system, trace
+from portbench import loops, spec, trace
 
 TRACE_TRIES = 3
 
@@ -35,6 +38,7 @@ class Context:
     setup_s: float
     peaks: dict
     kernels: dict
+    family: object               # the cell's family module
 
 
 def sync(device: torch.device) -> None:
@@ -44,7 +48,8 @@ def sync(device: torch.device) -> None:
 
 class Cell:
     """A cell's configuration, traffic and limits: by name from
-    ``cells/<name>.json``, or given."""
+    ``cells/<name>.json``, or given; and the family that runs it, which
+    has to list the traffic's kind."""
 
     def __init__(self, name: str, *, cfg=None, traffic=None, limits=None):
         self.name = name
@@ -55,6 +60,11 @@ class Cell:
             limits = limits or c["limits"]
         self.cfg, self.traffic, self.limits = cfg, traffic, limits
         self.kind = traffic["kind"]
+        self.family = spec.family_of(cfg)
+        if self.kind not in self.family.KINDS:
+            raise ValueError(f"{name}: family {cfg['family']!r} runs no "
+                             f"traffic kind {self.kind!r} (its KINDS: "
+                             f"{', '.join(self.family.KINDS)})")
 
 
 class Setup:
@@ -62,45 +72,25 @@ class Setup:
 
     def __init__(self, cell: Cell, seed: int, device: torch.device):
         t0 = time.perf_counter()
-        cfg, traffic = cell.cfg, cell.traffic
-        torch.backends.cudnn.allow_tf32 = cfg["tf32"]
-        torch.backends.cuda.matmul.allow_tf32 = cfg["tf32"]
+        fam, cfg, traffic = cell.family, cell.cfg, cell.traffic
         self.cell, self.device = cell, device
-        gen = inputs.generator(seed, device)
-        self.weights = inputs.make_weights(cfg, gen, device)
-        frames = inputs.make_frames(cfg, traffic["pool"], gen, device)
-        self.frames_host = frames.cpu().numpy()
-        self.sel = inputs.make_selection(cfg, seed)
-        self.schedule = inputs.Schedule(seed, traffic["pool"],
-                                        traffic.get("sample_share", 1.0))
+        self.inputs = fam.make_inputs(cfg, traffic, seed, device)
         sync(device)
         t1 = time.perf_counter()
-        self.prog = system.build(cfg, traffic, self.weights, self.sel, device)
+        self.prog = fam.build(cfg, traffic, self.inputs, device)
         t2 = time.perf_counter()
-        self.pool_blobs = None
-        if cell.kind == "cloud_closed_loop":
-            # the clients' work: every pool frame through the port's edge
-            self.pool_blobs = [self.prog.plan.encode(self.prog.edge(
-                frames[i:i + 1])) for i in range(frames.shape[0])]
-        del frames
+        fam.clients(cell.kind, self.prog, traffic, self.inputs, device)
         self.stages = {"inputs": t1 - t0, "program": t2 - t1,
                        "clients": time.perf_counter() - t2}
 
     def window(self, seconds: float, span) -> loops.Window:
-        t, p = self.cell.traffic, self.prog
-        if self.cell.kind == "cloud_closed_loop":
-            return loops.cloud_closed_loop(p, t, self.pool_blobs,
-                                           self.schedule, seconds, span)
-        if self.cell.kind == "edge_closed_loop":
-            return loops.edge_closed_loop(p, t, self.frames_host,
-                                          self.schedule, seconds, span,
-                                          self.device)
-        return loops.gateway_serve(p, t, self.frames_host, seconds, span)
+        c = self.cell
+        return c.family.window(c.kind, self.prog, c.traffic, self.inputs,
+                               seconds, span, self.device)
 
     def release(self) -> None:
         """Drop the program's state before the reference runs."""
         self.prog = None
-        self.pool_blobs = None
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -147,17 +137,14 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, *,
             if device.type == "cuda" else 0)
     st.release()
     ctx = Context(cell.cfg, cell.traffic, win, tr, registry,
-                  setup_s, spec.peaks(), trace.port_kernels())
+                  setup_s, spec.peaks(), trace.port_kernels(), cell.family)
     metrics = {}
     for m in spec.metrics_for(cell.name, traced):
         value = spec.reader(m["name"])(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    want = judge.reference_for(cell.kind, cell.cfg, st.weights, st.sel,
-                               st.frames_host, device)
-    nums = judge.numbers(cell.kind, cell.cfg, st.weights, st.sel,
-                         st.frames_host, device, win.frames, win.answers,
-                         want)
+    fam, args = cell.family, (cell.kind, cell.cfg, st.inputs, device)
+    nums = fam.numbers(*args, win.frames, win.answers, fam.reference(*args))
     return result(cell, win, nums, metrics, device, peak, tr)
 
 

@@ -6,9 +6,9 @@ over many seeds, and the control's.
 For each seed, in one process: the cell's set-up, a short window at the
 cell's own load, the check's numbers (``program``); and the same numbers
 with the reference computed in TF32 put in the program's place
-(``control``: products' operands rounded to TF32, summed in float32). One
-JSON line per seed on standard output. The benchmark's own runs
-never run this.
+(``control``: the family's reference in TF32, products' operands rounded
+to TF32 and summed in float32). One JSON line per seed on standard
+output. The benchmark's own runs never run this.
 """
 import argparse
 import json
@@ -22,17 +22,17 @@ ROOT = Path(__file__).resolve().parent.parent
 def readings(cell, seed: int, seconds: float, device) -> dict:
     """{"program": {number: reading, ...}, "control": {number: reading}}
     for one seed."""
-    from portbench import bench, judge, trace
+    from portbench import bench, trace
     st = bench.Setup(cell, seed, device)
     st.window(0.0, trace.spans(False))
     win = st.window(seconds, trace.spans(False))
     st.release()
-    args = (cell.kind, cell.cfg, st.weights, st.sel, st.frames_host, device)
-    want = judge.reference_for(*args)
-    nums = judge.numbers(*args, win.frames, win.answers, want)
+    fam, args = cell.family, (cell.kind, cell.cfg, st.inputs, device)
+    want = fam.reference(*args)
+    nums = fam.numbers(*args, win.frames, win.answers, want)
     return {"program": dict(nums, answers=len(win.answers),
                             verdict=bench.verdict(cell, win, nums)),
-            "control": judge.numbers(*args, [], [], want, control=True)}
+            "control": fam.numbers(*args, [], [], want, control=True)}
 
 
 def main(argv=None) -> int:

@@ -234,7 +234,7 @@ def test_idle_gaps_split_each_benchmark_span_and_keep_its_total():
 
 def _ctx(tr, registry, completed=4):
     win = loops.Window(t0=0.0, t1=1.0, latencies=[0.1] * completed)
-    return bench.Context({}, {}, win, tr, registry, 0.0, {}, {})
+    return bench.Context({}, {}, win, tr, registry, 0.0, {}, {}, None)
 
 
 def test_stage_names_come_from_the_registry():
@@ -297,7 +297,7 @@ def test_profiled_gateway_window_on_the_cpu():
     assert {r[0] for r in tr.program} == stages
     assert tr.ops == [] and tr.spans and tr.window[1] > tr.window[0]
     ctx = bench.Context(cell.cfg, cell.traffic, win, tr, registry, 0.0, {},
-                        trace.port_kernels())
+                        trace.port_kernels(), cell.family)
     out = attribution.summary(ctx)
     assert out["readings"]["edge_host_ms"] > 0
     assert out["readings"]["restore_device_ms"] == 0.0

@@ -1,7 +1,8 @@
 """Nothing the benchmark runs loads JAX or the JAX package ``repro``: a
-fresh interpreter imports the harness, the reference, every reader and the
-port's modules that the cells drive, then lists the loaded modules whose
-top-level name is one of them, compared whole."""
+fresh interpreter imports the harness, the reference, every reader, every
+configuration's family and the port's modules that the cells drive, then
+lists the loaded modules whose top-level name is one of them, compared
+whole."""
 import json
 import os
 import subprocess
@@ -14,11 +15,13 @@ ROOT = Path(__file__).resolve().parent.parent
 
 PROBE = """
 import json, sys
-from portbench import bench, control, counts, inputs, judge, loops, spec
-from portbench import system, trace
+from portbench import bench, control, counts, inputs, loops, smoke, spec
+from portbench import trace
 from portbench.reference import model, wire
 for m in spec.benchmark()["end_to_end"] + spec.benchmark()["per_layer"]:
     spec.reader(m["name"])
+for c in spec.benchmark()["configs"]:
+    spec.family_of(spec.config(c["name"]))
 import repro_torch.pipeline, repro_torch.models.cnn, repro_torch.core.baf
 import repro_torch.serve.gateway, repro_torch.obs.hooks
 import repro_torch.kernels._build

@@ -5,11 +5,12 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import inputs, smoke, spec, system
+from portbench import spec
 from portbench.reference import model as ref
 from portbench.reference import wire
 
 CPU = torch.device("cpu")
+CNN_BAF = spec.family("cnn_baf")
 
 
 def assert_close(got, want):
@@ -22,14 +23,11 @@ def assert_close(got, want):
 
 
 def _setup(config_name, backend="raw"):
-    cfg = smoke.smoke_config(spec.config(config_name))
-    gen = inputs.generator(2**31 + 7, CPU)
-    w = inputs.make_weights(cfg, gen, CPU)
-    frames = inputs.make_frames(cfg, 3, gen, CPU)
-    sel = inputs.make_selection(cfg, 2**31 + 7)
-    prog = system.build(cfg, {"kind": "cloud_closed_loop",
-                              "backend": backend}, w, sel, CPU)
-    return cfg, w, frames, sel, prog
+    cfg = CNN_BAF.smoke_config(spec.config(config_name))
+    traffic = {"kind": "cloud_closed_loop", "backend": backend, "pool": 3}
+    inp = CNN_BAF.make_inputs(cfg, traffic, 2**31 + 7, CPU)
+    prog = CNN_BAF.build(cfg, traffic, inp, CPU)
+    return cfg, inp.weights, inp.frames, inp.sel, prog
 
 
 @pytest.mark.parametrize("config_name", ["yolo3-baf-c64", "yolo3-baf-c96"])

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import bench, control, smoke, spec, system
+from portbench import bench, control, smoke, spec
 from portbench.run import main
 
 CPU = torch.device("cpu")
@@ -57,11 +57,13 @@ def test_control_fails_the_limits(name):
 
 
 def _planted(monkeypatch, plant):
-    real = system.build
+    """``plant`` applied to the program that cnn_baf's ``build`` returns."""
+    family = spec.family("cnn_baf")
+    real = family.build
 
     def build(*args, **kwargs):
         return plant(real(*args, **kwargs))
-    monkeypatch.setattr(system, "build", build)
+    monkeypatch.setattr(family, "build", build)
 
 
 def _half_batch(cloud):
@@ -126,8 +128,8 @@ def test_code_altered_on_the_edge_is_caught(monkeypatch, name):
 
 def test_seed_fixes_the_inputs():
     cell = smoke.smoke_cell(CELLS[0])
-    a = bench.Setup(cell, 2**33 + 5, CPU)
-    b = bench.Setup(cell, 2**33 + 5, CPU)
+    a = bench.Setup(cell, 2**33 + 5, CPU).inputs
+    b = bench.Setup(cell, 2**33 + 5, CPU).inputs
     np.testing.assert_array_equal(a.frames_host, b.frames_host)
     assert all(torch.equal(a.weights[k], b.weights[k]) for k in a.weights)
     assert [x.data for x in a.pool_blobs] == [x.data for x in b.pool_blobs]

@@ -1,20 +1,21 @@
 """BENCHMARK.json against the benchmark's contract, and the harness's data
-files against it: every cell's configuration, traffic mix and limits,
-every metric's reader, and the configurations' counts against numbers
-worked by hand."""
+files against it: every cell's configuration, family, traffic mix and
+limits, every metric's reader, each family's own checks of its
+configurations, and the CNN's counts against numbers worked by hand."""
+import copy
 import json
 import re
 
 import pytest
 
-from portbench import counts, inputs, spec
+from portbench import counts, spec
 
 BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
 METRICS = BENCH["end_to_end"] + BENCH["per_layer"]
-KINDS = {"cloud_closed_loop", "edge_closed_loop", "gateway_serve"}
+CNN_BAF = spec.family("cnn_baf")
 
 
 def test_top_level_keys_and_command():
@@ -47,6 +48,7 @@ def test_end_to_end_metrics():
         assert 0.01 <= m["bound"] <= 0.25
         assert set(m) <= {"name", "unit", "better", "bound", "source",
                           "workloads"}
+        assert set(m.get("workloads", CELLS)) <= set(CELLS)
 
 
 @pytest.mark.parametrize("metric", BENCH["per_layer"],
@@ -57,6 +59,9 @@ def test_per_layer_metric(metric):
     assert metric["source"] in ("device_trace", "program_span",
                                 "program_counter", "host_clock")
     assert set(metric["workloads"]) <= set(CELLS)
+    for cell in metric["workloads"]:     # each listed cell reports `moves`
+        assert metric["moves"] in [m["name"]
+                                   for m in spec.metrics_for(cell, False)]
     assert set(metric) == {"name", "unit", "better", "source", "layer",
                            "moves", "workloads"}
 
@@ -81,8 +86,9 @@ def test_cell_names_known_parts(name):
 @pytest.mark.parametrize("name", spec.cell_names())
 def test_cell_file(name):
     c = spec.cell(name)
-    assert spec.config(c["config"])["name"] == c["config"]
-    assert spec.traffic(c["traffic"])["kind"] in KINDS
+    cfg = spec.config(c["config"])
+    assert cfg["name"] == c["config"]
+    assert spec.traffic(c["traffic"])["kind"] in spec.family_of(cfg).KINDS
     assert set(c["limits"]) == set(c["readings"])
     assert all(0 < v for v in c["limits"].values())
 
@@ -94,39 +100,55 @@ def test_config_file(entry):
     assert cfg["name"] == entry["name"]
     assert set(entry["reduced"]) <= set(cfg)
     assert cfg["reduced"] == entry["reduced"]
-    assert cfg["counts"] == counts.all_counts(cfg)
-    assert (cfg["split_shape"], cfg["split_q"]) == ([64, 64, 256], 128)
+    assert callable(spec.family_of(cfg).check_config)
 
 
 def test_counts_worked_by_hand():
     c64 = spec.config("yolo3-baf-c64")
     # stem + split: 226,492,416 + 6 x 1,207,959,552 + 3 x 134,217,728 MACs
-    assert counts.edge_flops(c64) == 2 * (226_492_416 + 6 * 1_207_959_552
-                                          + 3 * 134_217_728)
-    assert round(counts.edge_flops(c64) / 1e9, 1) == 15.8
+    assert CNN_BAF.edge_flops(c64) == 2 * (226_492_416 + 6 * 1_207_959_552
+                                           + 3 * 134_217_728)
+    assert round(CNN_BAF.edge_flops(c64) / 1e9, 1) == 15.8
     assert counts.quantize_bytes(1, 4096, 64, 8) == 1_311_232
     assert counts.consolidate_bytes(8, 4096, 64, 8) == 18_876_672
     # BaF: the x2 transposed conv's 4096 x 64 x 64 x 9 products, two 64->64
     # and one 64->128 3x3 convs at 128x128, the split conv at 64x64
-    assert counts.restore_flops(c64) == 2 * (150_994_944 + 2 * 603_979_776
-                                             + 2 * 1_207_959_552)
-    assert counts.cloud_flops(c64) == 2 * (2 * (134_217_728
-                                                + 1_207_959_552)
-                                           + 256 * 80)
+    assert CNN_BAF.restore_flops(c64) == 2 * (150_994_944 + 2 * 603_979_776
+                                              + 2 * 1_207_959_552)
+    assert CNN_BAF.cloud_flops(c64) == 2 * (2 * (134_217_728
+                                                 + 1_207_959_552)
+                                            + 256 * 80)
+    assert CNN_BAF.request_flops(c64, "gateway_serve") == sum(
+        c64["counts"][k] for k in ("edge_flops", "restore_flops",
+                                   "cloud_flops"))
 
 
-@pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
-def test_weights_fit_the_ports_modules(entry):
-    from repro_torch.core.baf import BaFConv, BaFConvConfig
-    from repro_torch.models.cnn import CNN, CNNConfig
-    cfg = spec.config(entry["name"])
-    cnn = CNN(CNNConfig(cfg["width_mult"], cfg["input_size"],
-                        cfg["num_classes"], cfg["tail_res_blocks"]),
-              device="meta")
-    baf = BaFConv(BaFConvConfig(cfg["c"], cfg["split_q"], cfg["baf_hidden"]),
-                  device="meta")
-    want = {f"cnn.{k}": tuple(v.shape) for k, v in cnn.state_dict().items()}
-    want.update({f"baf.{k}": tuple(v.shape)
-                 for k, v in baf.state_dict().items()})
-    got = {k: s for k, s, _, _ in inputs.weight_specs(cfg)}
-    assert got == want
+CNN_BAF_CONFIGS = [c["name"] for c in BENCH["configs"]
+                   if spec.config(c["name"])["family"] == "cnn_baf"]
+
+
+@pytest.mark.parametrize("name", CNN_BAF_CONFIGS)
+def test_weights_fit_the_ports_modules(name):
+    """cnn_baf's own checks of each of its configurations: the paper's
+    split shape and Q, the counts as the family works them out, and
+    weights that fit the port's CNN and BaF modules key for key."""
+    CNN_BAF.check_config(spec.config(name))
+
+
+BAD_CNN_BAF = {
+    "split_shape": lambda cfg: cfg.update(split_shape=[64, 64, 128]),
+    "split_q": lambda cfg: cfg.update(split_q=64),
+    "counts": lambda cfg: cfg["counts"].update(edge_flops=1),
+    # the layer table's split conv narrowed, where the port's CNN is not
+    "weights": lambda cfg: cfg["split"].__setitem__(1, 128),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(BAD_CNN_BAF))
+def test_cnn_baf_check_config_refuses(fault):
+    cfg = copy.deepcopy(spec.config("yolo3-baf-c64"))
+    BAD_CNN_BAF[fault](cfg)
+    if fault == "weights":
+        cfg["counts"] = CNN_BAF.all_counts(cfg)
+    with pytest.raises(ValueError, match=fault):
+        CNN_BAF.check_config(cfg)
